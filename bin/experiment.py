@@ -272,7 +272,7 @@ def main():
     ap.add_argument(
         "--native", action="store_true",
         help="drive the compiled C++ service frontends instead of the "
-             "Python/TPU services",
+             "Python/JAX services",
     )
     args = ap.parse_args()
 

@@ -10,8 +10,8 @@ the row every "hnswlib-equivalent" claim is judged against. Then checks:
 - .adj interop at N=20k: our exported graph parses byte-exactly through
   the reference's own loader (hnsw_service/hnsw_graph.cpp:14-151).
 
-Writes res/hnswlib_parity.json. CPU-only (no TPU use). Run alone on this
-1-core host — concurrent processes pollute the qps rows.
+Writes res/hnswlib_parity.json. CPU-only (no accelerator use). Run it
+alone on its host — concurrent processes pollute the qps rows.
 
 Usage: python bin/hnswlib_xcheck.py [out.json]
 """

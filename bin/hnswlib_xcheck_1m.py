@@ -10,9 +10,9 @@ real-engine index round-trips through HNSWIndex.from_hnswlib and serves the
 same recall through our native CPU engine.
 
 Everything expensive is cached in /tmp (GT, the ~40-min single-core build
-via saveIndex) so restarts resume. CPU-only — safe to run while the TPU is
-held by another process, but qps rows are polluted by concurrent load; the
-artifact records the load caveat.
+via saveIndex) so restarts resume. CPU-only — safe to run while the
+accelerator is held by another process, but qps rows are polluted by
+concurrent load; the artifact records the load caveat.
 
 Writes res/hnswlib_parity_1m.json.
 
@@ -173,7 +173,7 @@ def main():
             "engine": "REAL hnswlib compiled from /root/reference "
                       "(AVX-512), single core",
             "load_caveat": "qps rows measured on a 1-core host that may "
-                           "run concurrent TPU-driver processes",
+                           "run concurrent accelerator processes",
         },
         "hnswlib": {"build_s": build_s, "ladder": ladder},
         "bin_import_1m": {

@@ -19,7 +19,7 @@ def main():
 
     from hnsw_tpu.core.spaces import L2Space
     from hnsw_tpu.models.bruteforce import BruteforceIndex
-    from hnsw_tpu.models.hnsw import HNSWIndex, inline_search_kwargs
+    from hnsw_tpu.models.hnsw import HNSWIndex
     from hnsw_tpu.ops.traversal import search_batch
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
@@ -42,7 +42,7 @@ def main():
     _, gt = oracle.search_knn(q_all, 10)
     print(f"oracle: {time.time()-t0:.1f}s", flush=True)
 
-    dg, vectors, sq, _, labels_np, nbr_vec = idx._sync_device()
+    dg, vectors, sq, _, labels_np = idx._sync_device()
 
     def recall(ids, sl):
         got = labels_np[np.minimum(np.asarray(ids), len(labels_np) - 1)]
@@ -59,7 +59,6 @@ def main():
                 def run():
                     return search_batch(
                         vectors, dg, q, k=10, ef=ef, space="l2", sq_norms=sq,
-                        **inline_search_kwargs(nbr_vec),
                         expand=e, collect_metrics=True,
                     )
 

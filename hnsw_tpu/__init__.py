@@ -1,9 +1,9 @@
-"""hnsw_tpu — a TPU-native HNSW approximate-nearest-neighbor framework.
+"""hnsw_tpu — a batched HNSW approximate-nearest-neighbor framework in JAX.
 
-A brand-new JAX/XLA/Pallas re-design of the capability surface surveyed in
-SURVEY.md (reference: hiozings/Research-New-HNSW):
+A brand-new JAX/XLA re-design of the capability surface surveyed in
+SURVEY.md (reference: hiozings/Research-New-HNSW), run on an NVIDIA GPU:
 
-- Distance spaces (L2, inner-product) as MXU block matmuls instead of the
+- Distance spaces (L2, inner-product) as block matmuls instead of the
   reference's SIMD ladders (reference: hnswlib/space_l2.h, hnswlib/space_ip.h).
 - HNSW graphs as padded-CSR device arrays instead of flat pointer-chased
   linklists (reference: hnswlib/hnswalg.h:120-141).
@@ -12,7 +12,7 @@ SURVEY.md (reference: hiozings/Research-New-HNSW):
 - An exact-kNN bruteforce oracle (reference: hnswlib/bruteforce.h).
 - A native C++ graph builder + vector store runtime layer (reference:
   index_builder/build.cpp, storage_service/).
-- Sharded multi-device search with all-gather top-k merge over ICI.
+- Sharded multi-device search with an all-gather top-k merge.
 """
 
 from hnsw_tpu.core.graph import HNSWGraph, graph_device_arrays

@@ -3,7 +3,7 @@
 The reference keeps the graph as flat per-node byte blobs: level-0 links,
 vector and label interleaved in one allocation, upper links in per-node
 malloc'd lists (hnswlib/hnswalg.h:120-141, 486-503). That layout is built for
-pointer chasing. The TPU-native layout is dense padded arrays:
+pointer chasing. The device layout is dense padded arrays:
 
 - ``level0``      [N, maxM0] int32, sentinel -1 for absent links
 - ``upper``       [L, U, M]  int32, rows are *slots*; level l>=1 adjacency

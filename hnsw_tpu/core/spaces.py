@@ -43,14 +43,6 @@ class Space:
         return self.name == "l2"
 
     @property
-    def exact_i8(self) -> bool:
-        """True when stored values are integers in [-128, 127], so the int8
-        unified tier's codes are LOSSLESS (scale 1) and no rescore pass is
-        needed — the device capacity win of the reference's integer
-        L2SpaceI (hnswlib/space_l2.h:294-323) at zero recall cost."""
-        return False
-
-    @property
     def persist_name(self) -> str:
         """Name written to checkpoints (distinct from the kernel-dispatch
         `name` for derived spaces like cosine, which must reconstruct their
@@ -75,13 +67,10 @@ class L2SpaceU8(Space):
     Values are shifted by -128 at insert/query time, so stored vectors are
     integers in [-128, 127]: (a-128)-(b-128) == a-b, so every squared-L2
     distance is unchanged, and with d <= 128 all intermediate sums stay
-    below 2^24 — exactly representable in f32 (and the shifted integers in
-    bf16), so EVERY device path (bf16 unified rows, the int8 unified tier
-    with scale-1 codes, MXU block distances, rescore) computes the exact
-    integer distance the reference's scalar uint8 loop returns. The int8
-    unified tier (`exact_i8`) thus becomes a LOSSLESS half-byte-per-value
-    row format: ~2x the bf16 tier's per-chip capacity at zero recall cost,
-    with the auto-rescore pass disabled (nothing to buy back)."""
+    below 2^24 — exactly representable in f32, while each shifted value is
+    exact in TF32 and bf16 — so EVERY device path (the hop at default
+    precision, block distances, the rescore) computes the exact integer
+    distance the reference's scalar uint8 loop returns."""
 
     def __init__(self, dim: int, storage_dtype=jnp.float32):
         super().__init__(name="l2", dim=dim, storage_dtype=storage_dtype)
@@ -89,10 +78,6 @@ class L2SpaceU8(Space):
     @property
     def persist_name(self) -> str:
         return "l2u8"
-
-    @property
-    def exact_i8(self) -> bool:
-        return True
 
     def preprocess(self, x: np.ndarray) -> np.ndarray:
         x = np.asarray(x)
@@ -121,9 +106,8 @@ class CosineSpace(Space):
     """Cosine distance, d = 1 - cos(a, b), as L2-normalize + inner product —
     hnswlib's documented recipe for cosine similarity (the reference repo
     itself ships only L2 + IP, hnswlib/space_ip.h). Queries AND stored
-    vectors are normalized host-side in preprocess; the device kernels run
-    the plain IP path, so every IP fast path (unified node blocks, Pallas
-    hop kernels, native engine) applies unchanged."""
+    vectors are normalized host-side in preprocess; the device kernels and
+    the native engine run the plain IP path unchanged."""
 
     def __init__(self, dim: int, storage_dtype=jnp.float32):
         super().__init__(name="ip", dim=dim, storage_dtype=storage_dtype)

@@ -3,7 +3,7 @@
 Reimplements the capability surface of hnswlib::BruteforceSearch
 (hnswlib/bruteforce.h:9-172): addPoint, removePoint (swap-delete,
 bruteforce.h:64-103), searchKnn (106-135), save/load (138-171) — with the
-scan re-expressed as streamed MXU block-distance matmuls + top-k merge
+scan re-expressed as streamed block-distance matmuls + top-k merge
 (hnsw_tpu.ops.topk.bruteforce_topk) instead of a scalar loop over a max-heap.
 
 The reference never instantiates its bruteforce class from first-party code;
@@ -145,10 +145,10 @@ class BruteforceIndex:
             idx = np.argsort(d, axis=1)[:, :k_eff]
             dists = np.take_along_axis(d, idx, axis=1)
         else:
-            # "highest": the MXU's default bf16 input rounding misranks
-            # near-tie neighbors on clustered data (1.25% of true 10-NN at
-            # 100k/244-per-cluster) — this index is the EXACT recall oracle
-            # (bruteforce.h semantics), so it pays the precise-matmul cost.
+            # "highest": the default matmul precision rounds f32 inputs
+            # (TF32 on the GPU) and misranks near-tie neighbors on clustered
+            # data — this index is the EXACT recall oracle (bruteforce.h
+            # semantics), so it pays the precise-matmul cost.
             dists, idx = bruteforce_topk(q, x, k_eff, self.space.name,
                                          x_sq_norms=sq, precision="highest")
             dists, idx = np.asarray(dists), np.asarray(idx)

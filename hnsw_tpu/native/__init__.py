@@ -153,6 +153,7 @@ def load_builder_lib() -> ctypes.CDLL:
     lib.hnsw_dirty_flags.restype = c.c_int
     lib.hnsw_take_dirty.argtypes = [c.c_void_p, P(c.c_int32)]
     lib.hnsw_clear_dirty.argtypes = [c.c_void_p]
+    lib.hnsw_repair_orphans.argtypes = [c.c_void_p]
     lib.hnsw_export_level0_rows.argtypes = [
         c.c_void_p, P(c.c_int32), c.c_int64, P(c.c_int32)
     ]

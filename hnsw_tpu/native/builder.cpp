@@ -7,7 +7,7 @@
 // connection with overflow re-prune (mutuallyConnectNewElement, 506-630),
 // update/repair (995-1150), delete-marking (853-900), and query search
 // (1271-1324). No reference code is used; the data layout here is padded
-// flat arrays (ready for zero-copy export to the TPU padded-CSR format)
+// flat arrays (ready for zero-copy export to the device padded-CSR format)
 // instead of the reference's interleaved per-node byte blobs.
 //
 // This engine has two roles in the framework:
@@ -290,6 +290,7 @@ struct HnswBuilder {
   // reference's per-node link_list_locks_, hnswalg.h:43; striping avoids
   // growing a mutex array under concurrency).
   static constexpr size_t kStripes = 65536;
+  static constexpr size_t kSerialPrefix = 4096;
   mutable std::vector<std::mutex> link_locks{kStripes};
   std::mutex entry_lock;  // entry_point/max_level (hnswalg.h:42)
 
@@ -473,6 +474,27 @@ struct HnswBuilder {
   // Connect `id` to selected neighbors at `level`; add reverse links with
   // overflow re-prune (mutuallyConnectNewElement, hnswalg.h:506-630).
   // Returns the closest selected neighbor (next entry point).
+  // Old level-0 members an overflow re-prune dropped while a threaded link
+  // phase runs (track_drops counts those in flight): besides the fresh
+  // nodes, the only nodes such a phase can leave with no inbound edge (see
+  // repair_orphans). Cleared when the last such phase has taken them.
+  std::atomic<int> track_drops{0};
+  std::vector<uint32_t> dropped0;
+  std::mutex dropped_mutex;
+
+  void note_drops(const int32_t* before, int cnt, const std::vector<Cand>& kept) {
+    std::lock_guard<std::mutex> g(dropped_mutex);
+    for (int j = 0; j < cnt; ++j) {
+      bool still = false;
+      for (const Cand& k : kept)
+        if (int32_t(k.id) == before[j]) {
+          still = true;
+          break;
+        }
+      if (!still && before[j] >= 0) dropped0.push_back(uint32_t(before[j]));
+    }
+  }
+
   uint32_t connect(uint32_t id, std::vector<Cand>& cands, int level,
                    bool locked = false) {
     (void)locked;  // link writes are always stripe-locked now
@@ -524,6 +546,8 @@ struct HnswBuilder {
           pool.push_back({dist(vec(o), vec(c.id)), o});
         }
         select_neighbors(pool, m_cap);
+        if (level == 0 && track_drops.load() > 0)
+          note_drops(other, *ocntp, pool);
         *ocntp = 0;
         for (const Cand& p : pool) other[(*ocntp)++] = int32_t(p.id);
         // clear stale slots beyond the live count (the flat array is
@@ -671,12 +695,29 @@ struct HnswBuilder {
       if (n_threads <= 0) n_threads = 1;
     }
     n_threads = std::min<size_t>(n_threads, std::max<size_t>(fresh.size(), 1));
-    if (n_threads <= 1 || fresh.size() < 64) {
+    // The first kSerialPrefix nodes of a graph link serially: concurrent
+    // inserts into a near-empty graph all see the same few nodes and build
+    // a poorly connected core, and small graphs stay deterministic (a
+    // threaded 2000-node graph can leave a query's near neighbor out of
+    // every path that reaches it, even after repair_orphans).
+    size_t linked = n - fresh.size();
+    size_t serial = fresh.size();
+    if (n_threads > 1 && fresh.size() >= 64)
+      serial = linked >= kSerialPrefix
+                   ? 0
+                   : std::min(fresh.size(), kSerialPrefix - linked);
+    if (serial < fresh.size()) {
+      std::lock_guard<std::mutex> g(dropped_mutex);
+      ++track_drops;
+    }
+    {
       VisitedSet vis;
       bool lk = writers.load() > 1;  // another writer op may be in flight
-      for (uint32_t id : fresh) link_node(id, node_level[id], lk, &vis);
-    } else {
-      std::atomic<size_t> next{0};
+      for (size_t i = 0; i < serial; ++i)
+        link_node(fresh[i], node_level[fresh[i]], lk, &vis);
+    }
+    if (serial < fresh.size()) {
+      std::atomic<size_t> next{serial};
       std::vector<std::thread> pool;
       for (int t = 0; t < n_threads; ++t) {
         pool.emplace_back([&] {
@@ -689,10 +730,114 @@ struct HnswBuilder {
         });
       }
       for (auto& th : pool) th.join();
+      std::vector<uint32_t> cands(fresh);
+      {
+        std::lock_guard<std::mutex> g(dropped_mutex);
+        cands.insert(cands.end(), dropped0.begin(), dropped0.end());
+        if (--track_drops == 0) std::vector<uint32_t>().swap(dropped0);
+      }
+      repair_orphans(&cands);
     }
     for (size_t i : updates) {
       std::lock_guard<std::mutex> g(big_lock);
       update(label_to_id[batch_labels[i]], vecs + i * size_t(dim));
+    }
+  }
+
+  // The threaded link phase (and the device-wave build) can leave a node
+  // with no inbound level-0 edge: every list that held it was re-pruned by
+  // a concurrent overflow selection before a later node linked to it, so
+  // no search reaches it.
+  // Re-attach each such node to its nearest out-neighbor with a free slot;
+  // when all are full, it takes the farthest slot of its nearest
+  // out-neighbor whose current target keeps another inbound edge.
+  // With `cands` (a batch's fresh and dropped nodes) only those are
+  // checked, each by looking for itself in its out-neighbors' lists, so a
+  // small batch does not scan all N * maxM0 links; one that finds no such
+  // back link is treated as orphaned (an extra inbound edge is harmless).
+  // The full inbound count is built only when checking every node is
+  // cheaper, or when an eviction needs it.
+  void repair_orphans(std::vector<uint32_t>* cands = nullptr) {
+    if (n < 2) return;
+    std::vector<int32_t> inbound;
+    auto count_inbound = [&] {
+      if (!inbound.empty()) return;
+      inbound.assign(n, 0);
+      for (size_t i = 0; i < n; ++i) {
+        const int32_t* row = links0.data() + i * size_t(maxM0);
+        for (int j = 0; j < cnt0[i]; ++j)
+          if (row[j] >= 0) ++inbound[row[j]];
+      }
+    };
+    auto linked_back = [&](uint32_t o) {
+      const int32_t* row = links0.data() + size_t(o) * maxM0;
+      for (int j = 0; j < cnt0[o]; ++j) {
+        if (row[j] < 0) continue;
+        const int32_t* back = links0.data() + size_t(row[j]) * maxM0;
+        for (int t = 0; t < cnt0[row[j]]; ++t)
+          if (back[t] == int32_t(o)) return true;
+      }
+      return false;
+    };
+    std::vector<uint32_t> orphans;
+    if (cands == nullptr || cands->size() * size_t(maxM0) >= n) {
+      count_inbound();
+      for (uint32_t o = 0; o < n; ++o)
+        if (inbound[o] == 0 && cnt0[o] > 0) orphans.push_back(o);
+    } else {
+      std::sort(cands->begin(), cands->end());
+      cands->erase(std::unique(cands->begin(), cands->end()), cands->end());
+      for (uint32_t o : *cands)
+        if (cnt0[o] > 0 && !linked_back(o)) orphans.push_back(o);
+    }
+    std::vector<Cand> outs;
+    for (uint32_t o : orphans) {
+      outs.clear();
+      const int32_t* row = links0.data() + size_t(o) * maxM0;
+      for (int j = 0; j < cnt0[o]; ++j)
+        if (row[j] >= 0) outs.push_back({dist(vec(o), vec(row[j])), uint32_t(row[j])});
+      std::sort(outs.begin(), outs.end(),
+                [](const Cand& a, const Cand& b) { return a.dist < b.dist; });
+      bool done = false;
+      for (const Cand& c : outs) {
+        std::lock_guard<std::mutex> g(lock_of(c.id));
+        int32_t* cntp;
+        int32_t* other = mutable_neighbors(c.id, 0, &cntp);
+        if (*cntp < maxM0) {
+          other[(*cntp)++] = int32_t(o);
+          done = true;
+        }
+        if (done) {
+          if (!inbound.empty()) ++inbound[o];
+          mark0(c.id);
+          break;
+        }
+      }
+      if (done) continue;
+      count_inbound();
+      if (inbound[o] > 0) continue;  // a suspect with an inbound edge
+      for (size_t ci = 0; !done && ci < outs.size(); ++ci) {
+        uint32_t c = outs[ci].id;
+        std::lock_guard<std::mutex> g(lock_of(c));
+        int32_t* cntp;
+        int32_t* other = mutable_neighbors(c, 0, &cntp);
+        int far = -1;
+        float far_d = -1.0f;
+        for (int j = 0; j < *cntp; ++j) {
+          if (inbound[other[j]] < 2) continue;
+          float d = dist(vec(uint32_t(other[j])), vec(c));
+          if (d > far_d) {
+            far_d = d;
+            far = j;
+          }
+        }
+        if (far < 0) continue;
+        --inbound[other[far]];
+        other[far] = int32_t(o);
+        ++inbound[o];
+        mark0(c);
+        done = true;
+      }
     }
   }
 
@@ -1260,6 +1405,13 @@ void hnsw_take_dirty(HnswBuilder* b, int32_t* out) {
 }
 
 void hnsw_clear_dirty(HnswBuilder* b) { b->clear_dirty(); }
+
+// Re-attach level-0 nodes that no list links to (see repair_orphans).
+void hnsw_repair_orphans(HnswBuilder* b) {
+  HnswBuilder::WriterScope ws(b);
+  std::lock_guard<std::mutex> g(b->big_lock);
+  b->repair_orphans();
+}
 
 // Pending in-place vector updates: flush merges their level-0 in-neighbors
 // into the dirty-row list (call BEFORE hnsw_dirty_count / hnsw_take_dirty)

@@ -239,6 +239,12 @@ class NativeHNSWBuilder:
     def clear_dirty(self) -> None:
         self.lib.hnsw_clear_dirty(self._h)
 
+    def repair_orphans(self) -> None:
+        """Give every level-0 node that no list links to an inbound edge
+        from its nearest out-neighbor (the threaded add_batch runs this
+        itself; batched link builders call it once at the end)."""
+        self.lib.hnsw_repair_orphans(self._h)
+
     def flush_updates(self) -> int:
         """Merge pending in-place vector updates' level-0 in-neighbors into
         the dirty-row list (their inline rows embed the stale vectors); call

@@ -14,7 +14,7 @@
 // A RLIMIT_AS self-cap makes the memory-reduction claim falsifiable
 // (reference main.cpp:19-22; default 2GB, --mem_cap_mb to change/0 to drop).
 //
-// The TPU device serving path remains the Python query_service (device HBM
+// The device serving path remains the Python query_service (device memory
 // holds the index; a C++ process cannot own the XLA client) — this binary
 // covers the reference's native CPU serving surface.
 //

@@ -1,9 +1,9 @@
-"""Distance kernels, TPU-first.
+"""Distance kernels.
 
 The reference implements distances as hand-rolled SIMD ladders with runtime
 CPU-capability dispatch (reference: hnswlib/space_l2.h:216-235,
-hnswlib/space_ip.h:348-380). On TPU the idiomatic shape is the opposite:
-batch everything and ride the MXU —
+hnswlib/space_ip.h:348-380). On an accelerator the idiomatic shape is the
+opposite: batch everything into matrix products —
 
     ||q - x||^2 = ||q||^2 + ||x||^2 - 2 <q, x>
 
@@ -11,11 +11,13 @@ so a [B, D] x [N, D] pairwise distance is one [B, D] @ [D, N] matmul plus a
 rank-1 row/col correction that XLA fuses into the matmul epilogue. The
 per-visit scalar distance of the reference's traversal loop
 (hnswlib/hnswalg.h:377-435) becomes `gather_*`: a batched gather of neighbor
-rows from HBM followed by a batched contraction.
+rows followed by a batched contraction.
 
-All kernels accept an `acc_dtype` (default float32). Data may be stored
-bfloat16; accumulation always happens in float32 on the MXU via
-`preferred_element_type`.
+Data may be stored bfloat16; accumulation always happens in float32 via
+`preferred_element_type`. Every kernel takes `precision`: the default lets
+the GPU run f32 products in TF32 (about three decimal digits), "highest"
+keeps full f32 — exactness-contract callers (the recall oracle, the exact
+rescore) pass "highest".
 """
 
 from __future__ import annotations
@@ -39,14 +41,13 @@ def pairwise_l2_sq(
     """Squared-L2 distance between every row of q [B, D] and x [N, D] → [B, N].
 
     Equivalent semantics to the reference's L2Sqr (hnswlib/space_l2.h:7-24)
-    evaluated on all pairs at once, expressed as one MXU matmul.
+    evaluated on all pairs at once, expressed as one matmul.
     `x_sq_norms` ([N]) may be precomputed and passed in to amortize across
     calls (the index stores it alongside the vectors).
 
-    `precision`: forwarded to the matmul. The TPU MXU rounds f32 inputs to
-    bf16 by default — fine for approximate search, but on clustered data
-    with near-tie neighbor ranks it scrambles the top-k (measured: 1.25%
-    of true 10-NN misranked at 100k/244-per-cluster). EXACTNESS-CONTRACT
+    `precision`: forwarded to the matmul. The default may round f32 inputs
+    (TF32 on the GPU) — fine for approximate search, but on clustered data
+    with near-tie neighbor ranks it scrambles the top-k. EXACTNESS-CONTRACT
     callers (the bruteforce recall oracle) must pass "highest".
     """
     q32 = q.astype(jnp.float32)
@@ -70,7 +71,7 @@ def pairwise_ip_dist(q: Array, x: Array, *, precision=None) -> Array:
     """Inner-product distance 1 - <q, x> for all pairs → [B, N].
 
     Same semantics as the reference's InnerProductDistance
-    (hnswlib/space_ip.h:17-23), batched onto the MXU.
+    (hnswlib/space_ip.h:17-23), batched into one matmul.
     """
     qx = jax.lax.dot_general(
         q,
@@ -110,13 +111,14 @@ def gather_l2_sq(
     ids: Array,
     *,
     x_sq_norms: Array | None = None,
+    precision=None,
 ) -> Array:
     """Squared-L2 from q[b] to x[ids[b, k]] → [B, K].
 
     Replaces the reference's one-SIMD-call-per-visited-neighbor inner loop
-    (hnswlib/hnswalg.h:377-435) with one batched HBM gather + batched
+    (hnswlib/hnswalg.h:377-435) with one batched row gather + batched
     contraction. With x_sq_norms resident, only D floats per neighbor move
-    from HBM and the contraction is a batched GEMV the MXU can tile.
+    and the contraction is a batched GEMV.
     """
     rows = _gather_rows(x, ids)  # [B, K, D]
     q32 = q.astype(jnp.float32)
@@ -131,11 +133,12 @@ def gather_l2_sq(
         q,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,
+        precision=precision,
     )  # [B, K]
     return jnp.maximum(qq + xx - 2.0 * qx, 0.0)
 
 
-def gather_ip_dist(q: Array, x: Array, ids: Array) -> Array:
+def gather_ip_dist(q: Array, x: Array, ids: Array, *, precision=None) -> Array:
     """Inner-product distance 1 - <q[b], x[ids[b,k]]> → [B, K]."""
     rows = _gather_rows(x, ids)
     qx = jax.lax.dot_general(
@@ -143,6 +146,7 @@ def gather_ip_dist(q: Array, x: Array, ids: Array) -> Array:
         q,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,
+        precision=precision,
     )
     return 1.0 - qx
 
@@ -154,11 +158,13 @@ def gather_dist(
     space: str,
     *,
     x_sq_norms: Array | None = None,
+    precision=None,
 ) -> Array:
     if space == "l2":
-        return gather_l2_sq(q, x, ids, x_sq_norms=x_sq_norms)
+        return gather_l2_sq(q, x, ids, x_sq_norms=x_sq_norms,
+                            precision=precision)
     if space == "ip":
-        return gather_ip_dist(q, x, ids)
+        return gather_ip_dist(q, x, ids, precision=precision)
     raise ValueError(f"unknown space {space!r} (expected 'l2' or 'ip')")
 
 

@@ -1,9 +1,9 @@
 """Top-k primitives for distance arrays.
 
 The reference collects top-k with binary heaps (hnswlib/bruteforce.h:106-135,
-hnswlib/hnswalg.h:311-440). Heaps are pointer-y and serial; on TPU the right
-primitives are `lax.top_k` over dense distance blocks and sorted-array merges,
-which XLA lowers to fast sorting networks on the VPU.
+hnswlib/hnswalg.h:311-440). Heaps are pointer-y and serial; on an accelerator
+the right primitives are `lax.top_k` over dense distance blocks and
+sorted-array merges.
 """
 
 from __future__ import annotations
@@ -48,18 +48,19 @@ def bruteforce_topk(
     *,
     chunk_size: int | None = None,
     x_sq_norms: Array | None = None,
-    precision: str | None = None,  # "highest" = exact f32 matmul (the MXU
-    #   rounds f32 inputs to bf16 by default, which misranks near-tie
-    #   neighbors on clustered data — the recall ORACLE must pass this;
-    #   the landmark-seeding hot path stays on the fast default)
+    precision: str | None = None,  # "highest" = exact f32 matmul (the
+    #   default runs f32 products in TF32 on the GPU, which misranks
+    #   near-tie neighbors on clustered data — the recall ORACLE must pass
+    #   this; the landmark-seeding hot path keeps the fast default, and a
+    #   seed only picks where the beam starts)
 ) -> tuple[Array, Array]:
     """Exact k-nearest over x [N, D] for queries q [B, D] → (dists, ids).
 
     Semantics of the reference's BruteforceSearch::searchKnn
-    (hnswlib/bruteforce.h:106-135), re-shaped for TPU: the N axis is streamed
-    in MXU-sized chunks, each chunk is one [B, D] @ [D, C] block-distance
+    (hnswlib/bruteforce.h:106-135), re-shaped for an accelerator: the N axis
+    is streamed in chunks, each chunk is one [B, D] @ [D, C] block-distance
     matmul, and a running [B, k] result is maintained by top-k merge instead
-    of a max-heap. HBM traffic is one pass over x; compute is full MXU.
+    of a max-heap. Memory traffic is one pass over x.
     """
     n = x.shape[0]
     b = q.shape[0]

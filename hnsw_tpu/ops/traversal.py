@@ -4,26 +4,20 @@ The reference's query path (hnswlib::HierarchicalNSW::searchKnn,
 hnswlib/hnswalg.h:1271-1324) is a serial pointer-chase: greedy 1-best descent
 over upper layers (1278-1303), then a heap-driven best-first beam over level 0
 (searchBaseLayerST, 311-440) with an epoch-tagged visited array
-(visited_list_pool.h). None of that maps to a TPU.
+(visited_list_pool.h). None of that batches.
 
 This module re-expresses it as a *batched, fixed-shape, masked* program under
-`jit`, shaped by what is actually fast on the hardware (measured on v5e):
+`jit`:
 
-- Random single-row HBM gathers cost ~100ns each in XLA (descriptor-issue
-  bound) — so the hot path avoids them. The index stores an *inline
-  neighbor-vector table* [N_pad, maxM0, D] (bf16): expanding a node is ONE
-  contiguous 8-16KB DMA + an MXU tile of distances, done by the Pallas
-  kernel hop_dist_inline (hnsw_tpu/ops/pallas_gather.py).
-- Scatters and take_along_axis on TPU serialize per element — so there is no
-  [B, N] visited array at all. Dedup is an O(EM * (ef + H)) vectorized
+- A hop gathers the chosen nodes' neighbor ids and their vector rows and
+  computes all distances at once (hnsw_tpu/ops/hop.py).
+- There is no [B, N] visited array. Dedup is an O(EM * (ef + H)) vectorized
   membership test of new candidates against the beam and a short ring
-  history of recently expanded ids: pure VPU compares. (Semantics: a node
-  that was expanded, evicted, and forgotten by the ring may be re-scored —
-  wasted work only, never a duplicate result, since beam membership is
-  always checked.)
-- Beam updates are length-(ef+EM) single-key sorts with the expanded flag
-  packed into the id payload (id*2+flag) — XLA sorts are fast (~30us at
-  [512, 232]); it's the gathers that were slow.
+  history of recently expanded ids. (Semantics: a node that was expanded,
+  evicted, and forgotten by the ring may be re-scored — wasted work only,
+  never a duplicate result, since beam membership is always checked.)
+- Beam updates merge a sorted beam with the new candidate block, with the
+  expanded flag packed into the id payload (id*2+flag).
 - All within-beam selections use one-hot compare-reduce instead of gather.
 
 Per-query hop and distance-computation counters (the reference's
@@ -47,6 +41,7 @@ import jax.numpy as jnp
 
 from hnsw_tpu.core.graph import DeviceGraph
 from hnsw_tpu.ops.distance import gather_dist
+from hnsw_tpu.ops.hop import hop_dist
 
 Array = jax.Array
 
@@ -102,46 +97,6 @@ def _greedy_descent_level(
     init = (cur, cur_d, jnp.ones(cur.shape, dtype=bool))
     cur, cur_d, _ = jax.lax.while_loop(cond, body, init)
     return cur, cur_d
-
-
-def _greedy_descent_inline(
-    q, table, cur_slot, cur_d, u_pad, m_pad, space, interpret
-):
-    """Batched greedy 1-best walk on one upper level through the unified
-    node-block table (ONE DMA per query per hop instead of M serialized XLA
-    row gathers): the table row carries the slot's M neighbor vectors and
-    the neighbors' slots at the same level. Queries parked on the dummy slot
-    (u_pad-1, e.g. an entry override absent at this level) see only invalid
-    neighbors and terminate immediately."""
-    from hnsw_tpu.ops.pallas_gather import hop_dist_unified
-
-    dummy = u_pad - 1
-
-    def cond(state):
-        _, _, improved = state
-        return jnp.any(improved)
-
-    def body(state):
-        cur_slot, cur_d, _ = state
-        d, slots = hop_dist_unified(
-            q, table, cur_slot[:, None], m_pad, space, interpret=interpret
-        )  # d [B, m_pad], slots [B, m_pad] of neighbor slots
-        valid = slots < dummy
-        d = jnp.where(valid, d, _INF)
-        best = jnp.argmin(d, axis=-1)
-        onehot = (
-            jax.lax.broadcasted_iota(jnp.int32, d.shape, 1) == best[:, None]
-        )
-        best_d = jnp.min(d, axis=-1)
-        best_slot = jnp.sum(jnp.where(onehot, slots, 0), axis=-1)
-        improved = best_d < cur_d
-        cur_slot = jnp.where(improved, best_slot, cur_slot)
-        cur_d = jnp.where(improved, best_d, cur_d)
-        return cur_slot, cur_d, improved
-
-    init = (cur_slot, cur_d, jnp.ones(cur_slot.shape, dtype=bool))
-    cur_slot, cur_d, _ = jax.lax.while_loop(cond, body, init)
-    return cur_slot, cur_d
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +201,6 @@ class StopView(NamedTuple):
         "collect_metrics",
         "has_mask",
         "hist_len",
-        "interpret",
-        "tb",
-        "nbuf",
-        "unified_int8",
-        "unified_int4",
         "stop_patience",
         "stop_frontier",
         "frontier_rank",
@@ -273,23 +223,14 @@ def search_batch(
     #   skip the upper-layer descent and start the beam at these ids (must
     #   be DISTINCT per query; dists ascending). The landmark-seeding entry
     #   mode (HNSWIndex SearchParams.entry_seeds) computes these with one
-    #   MXU matmul against all upper-level nodes — an exact argmin over the
+    #   matmul against all upper-level nodes — an exact argmin over the
     #   1/M-sampled landmark set, where the greedy descent is approximate.
     seed_dists: Array | None = None,  # [B, S] f32 distances for seed_ids
-    nbr_vectors: Array | None = None,  # [N_pad, maxM0, D] inline table (fast path)
-    level0_tiles: Array | None = None,  # [N_pad/32, 8, 128] tiled adjacency
-    unified_table: Array | None = None,  # [N_pad, S_row, 128] unified node blocks
-    upper_tables: tuple | None = None,  # ((table_l, slot_to_id_l), ...) per level
     expand: int = 1,
     max_iters: int = 0,  # 0 => default 2*ef + 16
     hist_len: int = 0,  # 0 => default ef
     collect_metrics: bool = False,
     has_mask: bool = False,
-    interpret: bool = False,
-    tb: int = 16,  # hop-kernel query tile (queries per grid step)
-    nbuf: int = 2,  # hop-kernel DMA pipeline depth (buffers in flight)
-    unified_int8: bool = False,  # unified_table rows are int8-quantized
-    unified_int4: bool = False,  # unified_table rows are int4-quantized
     stop_patience: int = 0,  # >0: stop a query after this many iterations
     #   without top-k improvement (adaptive-termination speed mode)
     stop_frontier: float = 0.0,  # >0: stop a query once its best UNexpanded
@@ -318,11 +259,9 @@ def search_batch(
     Early termination: the fixed-ef loop normally runs until every beam
     entry is expanded (the batch analog of exhausting hnswlib's candidate
     heap, hnswalg.h:342-436). `stop_patience` ends a query once its k-th
-    best distance hasn't improved for that many iterations — the only
-    remaining qps lever on this hardware, since the hop kernel is
-    descriptor-issue bound and the merge near-roofline (fewer expansions,
-    not cheaper ones). `stop_fn` generalizes this to arbitrary pluggable
-    conditions over the beam state.
+    best distance hasn't improved for that many iterations (fewer
+    expansions per query). `stop_fn` generalizes this to arbitrary
+    pluggable conditions over the beam state.
     """
     assert ef >= k, "ef must be >= k"
     if max_iters <= 0:
@@ -369,11 +308,10 @@ def search_batch(
             )
         return _beam_level0(
             q, graph, beam_d, beam_key, res_d, res_id, vectors, sq_norms,
-            eligible, nbr_vectors, level0_tiles, unified_table,
+            eligible,
             k=k, ef=ef, space=space, expand=expand, max_iters=max_iters,
             hist_len=hist_len, collect_metrics=collect_metrics,
-            use_mask=use_mask, interpret=interpret, tb=tb, nbuf=nbuf,
-            unified_int8=unified_int8, unified_int4=unified_int4,
+            use_mask=use_mask,
             stop_patience=stop_patience, stop_frontier=stop_frontier,
             frontier_rank=frontier_rank, stop_fn=stop_fn,
         )
@@ -394,40 +332,18 @@ def search_batch(
     cur_d = jnp.where(ent_ok, cur_d, _INF)
 
     # ---- upper layers (static python loop over levels) --------------------
-    if upper_tables is not None and graph.max_level > 0:
-        top = graph.max_level
-        m_up = graph.upper.shape[2]
-        m_pad = max(16, -(-m_up // 16) * 16)  # packer's column padding
-        cur_slot = jnp.take(graph.upper_slot[top - 1], cur, axis=0)
-        for level in range(top, 0, -1):
-            tab, slot_ids = upper_tables[level - 1]
-            u_pad = slot_ids.shape[0]
-            # tables are sized per level (make_upper_tables level_sizes);
-            # slot values from the SHARED slot map use the global dummy —
-            # clamp onto the local dummy row (identical all-sentinel content)
-            cur_slot = jnp.minimum(cur_slot, u_pad - 1)
-            nxt_slot, nxt_d = _greedy_descent_inline(
-                q, tab, cur_slot, cur_d, u_pad, m_pad, space, interpret
-            )
-            cur_slot, cur_d = nxt_slot, nxt_d
-            nid = jnp.take(slot_ids, jnp.minimum(cur_slot, u_pad - 1), axis=0)
-            # a query parked on the dummy slot keeps its previous node
-            cur = jnp.where(cur_slot >= u_pad - 1, cur, nid)
-            if level > 1:
-                cur_slot = jnp.take(graph.upper_slot[level - 2], cur, axis=0)
-    else:
-        for level in range(graph.max_level, 0, -1):
-            cur, cur_d = _greedy_descent_level(
-                q,
-                vectors,
-                sq_norms,
-                graph.upper[level - 1],
-                graph.upper_slot[level - 1],
-                cur,
-                cur_d,
-                num_nodes,
-                space,
-            )
+    for level in range(graph.max_level, 0, -1):
+        cur, cur_d = _greedy_descent_level(
+            q,
+            vectors,
+            sq_norms,
+            graph.upper[level - 1],
+            graph.upper_slot[level - 1],
+            cur,
+            cur_d,
+            num_nodes,
+            space,
+        )
 
     # ---- level-0 beam ------------------------------------------------------
     beam_d = jnp.full((b, ef), _INF)
@@ -444,11 +360,10 @@ def search_batch(
 
     return _beam_level0(
         q, graph, beam_d, beam_key, res_d, res_id, vectors, sq_norms,
-        eligible, nbr_vectors, level0_tiles, unified_table,
+        eligible,
         k=k, ef=ef, space=space, expand=expand, max_iters=max_iters,
         hist_len=hist_len, collect_metrics=collect_metrics,
-        use_mask=use_mask, interpret=interpret, tb=tb, nbuf=nbuf,
-        unified_int8=unified_int8, unified_int4=unified_int4,
+        use_mask=use_mask,
         stop_patience=stop_patience, stop_frontier=stop_frontier,
         frontier_rank=frontier_rank, stop_fn=stop_fn,
     )
@@ -456,10 +371,8 @@ def search_batch(
 
 def _beam_level0(
     q, graph, beam_d, beam_key, res_d, res_id, vectors, sq_norms, eligible,
-    nbr_vectors, level0_tiles, unified_table, *, k, ef, space, expand,
-    max_iters, hist_len, collect_metrics, use_mask, interpret, tb, nbuf,
-    unified_int8, unified_int4, stop_patience, stop_frontier, stop_fn,
-    frontier_rank=0,
+    *, k, ef, space, expand, max_iters, hist_len, collect_metrics, use_mask,
+    stop_patience, stop_frontier, stop_fn, frontier_rank=0,
 ) -> SearchResults:
     """The fixed-ef masked beam loop over level 0 (reference:
     searchBaseLayerST, hnswalg.h:311-440), starting from an initialized
@@ -504,33 +417,9 @@ def _beam_level0(
         new_exp = jnp.any(onehot, axis=1)  # [B, ef]
         beam_key2 = st.beam_key | new_exp.astype(jnp.int32)
 
-        # Fetch neighbor ids + distances. Fastest path: ONE DMA per expansion
-        # from the unified node-block table (ids + bf16 vectors in one row).
-        if unified_table is not None:
-            from hnsw_tpu.ops.pallas_gather import hop_dist_unified
-
-            d, nbrs = hop_dist_unified(
-                q, unified_table, chosen, max_m0, space, tb=tb,
-                interpret=interpret, nbuf=nbuf, int8=unified_int8,
-                int4=unified_int4,
-            )
-        # Split fast path: one Pallas call per hop (contiguous DMAs for
-        # vectors and the 32-node id tile), ids extracted with one-hot reduces.
-        elif nbr_vectors is not None:
-            from hnsw_tpu.ops.pallas_gather import (
-                extract_level0_ids,
-                hop_dist_inline,
-            )
-
-            d, id_tiles = hop_dist_inline(
-                q, nbr_vectors, level0_tiles, chosen, max_m0, space, tb=tb,
-                interpret=interpret,
-            )
-            nbrs = extract_level0_ids(id_tiles, chosen, max_m0)
-        else:
-            nbrs = jnp.take(graph.level0, chosen, axis=0).reshape(b, em)
-            safe_n = jnp.where(nbrs < n_pad, nbrs, sent)
-            d = gather_dist(q, vectors, safe_n, space, x_sq_norms=sq_norms)
+        d, nbrs = hop_dist(
+            q, vectors, graph.level0, chosen, space, sq_norms=sq_norms
+        )
 
         in_range = nbrs < num_nodes
         # Dedup: candidate already in beam, in recent history, or duplicated

@@ -2,13 +2,15 @@
 
 The reference's only "distribution" is an HTTP storage/compute split on
 localhost (SURVEY.md §2: no collectives of any kind; per-vector HTTP GETs,
-hnsw_service/hnsw_graph.cpp:174-212). The TPU-native replacement follows
+hnsw_service/hnsw_graph.cpp:174-212). The device-native replacement follows
 BASELINE.json config 4: the dataset is partitioned into one complete HNSW
 sub-index per device, all device arrays are stacked [S, ...] and sharded over
 a mesh axis, queries are replicated; each device runs the batched beam
 traversal on its local shard inside `shard_map`, and per-shard top-k results
-are merged with one `all_gather` over ICI — the XLA-collective equivalent of
-the reference's per-node network fetches, at ~10^6x lower latency per hop.
+are merged with one `all_gather` — the XLA-collective equivalent of the
+reference's per-node network fetches. The search exchanges only the [S, B, k]
+partial results, so the mesh is a flat "shard" axis over however the devices
+are linked.
 
 A second mesh axis ("dp") shards the query batch — the data-parallel axis —
 so a (dp, shard) 2D mesh scales both index size and query throughput.
@@ -39,19 +41,7 @@ from hnsw_tpu.ops.traversal import search_batch
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class ShardedIndexArrays:
-    """Stacked per-shard device arrays; leading axis S is sharded.
-
-    The serving-table tier mirrors the single-chip ladder
-    (ops.pallas_gather.build_inline_tables): `kind` (static pytree
-    metadata) selects which aux tables are real — the others stay dummy
-    arrays so the pytree shape is jit-stable per kind.
-
-      "unified"  — bf16 unified node blocks + per-level upper tables
-      "unified8" — int8 unified node blocks (+ codes/scales side tables
-                   kept live for row-delta refresh)
-      "split"    — inline neighbor vectors + tiled adjacency
-      "off"      — XLA-gather fallback
-    """
+    """Stacked per-shard device arrays; leading axis S is sharded."""
 
     vectors: jax.Array  # [S, n_pad, D]
     sq_norms: jax.Array  # [S, n_pad] (zeros for ip space)
@@ -61,14 +51,6 @@ class ShardedIndexArrays:
     labels: jax.Array  # [S, n_pad] int64 (-1 padding)
     entry_point: jax.Array  # [S] int32
     num_nodes: jax.Array  # [S] int32
-    nbr_vectors: jax.Array  # [S, n_pad, maxM0, D] bf16, or [S,1,1,1] dummy
-    level0_tiles: jax.Array  # [S, n_pad/32, 8, 128] int32, or [S,1,1,1] dummy
-    unified_table: jax.Array  # [S, n_pad*s_row, 128] int32, or [S,1,1] dummy
-    codes: jax.Array  # [S, n_pad, d_pad] int8 (unified8), or [S,1,1] dummy
-    scales: jax.Array  # [S, n_pad] f32 (unified8), or [S,1] dummy
-    upper_tabs: tuple  # ((tab [S,U_pad*s,128], slot_ids [S,U_pad]), ...) per
-    #   upper level when kind is unified/unified8, else ()
-    kind: str = dataclasses.field(metadata=dict(static=True), default="off")
 
 
 def _local_graph(a: ShardedIndexArrays) -> DeviceGraph:
@@ -84,114 +66,18 @@ def _local_graph(a: ShardedIndexArrays) -> DeviceGraph:
     )
 
 
-def _make_sharded_inline_chunked(
-    vecs_dev: jax.Array,  # [S, n_pad, D] sharded on S
-    level0_dev: jax.Array,  # [S, n_pad, m0] sharded on S
-    out_sharding,
-    chunk: int = 1 << 17,
-) -> jax.Array:
-    """Chunked analog of vmap(make_inline_neighbors): per-device transient
-    stays at one [S_local, chunk, m0, d_pad] slab instead of 2x the whole
-    per-shard table (see make_inline_neighbors_chunked for the HBM-edge
-    failure mode this avoids)."""
-    s, n_pad, d = vecs_dev.shape
-    m0 = level0_dev.shape[2]
-    d_pad = round_up(d, 128)
-
-    @functools.partial(
-        jax.jit, donate_argnums=(0,), out_shardings=out_sharding
-    )
-    def upd(tab, xc, lvl, start):
-        def one(x1, l1):
-            rows = jnp.take(x1, l1.reshape(-1), axis=0)
-            if d_pad != d:
-                rows = jnp.pad(rows, ((0, 0), (0, d_pad - d)))
-            return rows.reshape(l1.shape[0], m0, d_pad)
-
-        rows = jax.vmap(one)(xc, lvl)  # [S, chunk, m0, d_pad]
-        return jax.lax.dynamic_update_slice(tab, rows, (0, start, 0, 0))
-
-    xc = jax.jit(
-        lambda v: v.astype(jnp.bfloat16), out_shardings=None
-    )(vecs_dev)
-    tab = jax.jit(
-        lambda: jnp.zeros((s, n_pad, m0, d_pad), jnp.bfloat16),
-        out_shardings=out_sharding,
-    )()
-    for st in range(0, n_pad, chunk):
-        e = min(st + chunk, n_pad)
-        tab = upd(tab, xc, level0_dev[:, st:e], jnp.int32(st))
-    return jax.block_until_ready(tab)
-
-
-def _make_sharded_unified_chunked(
-    vecs_dev: jax.Array,  # [S, n_pad, D] sharded on S
-    level0_dev: jax.Array,  # [S, n_pad, m0] sharded on S
-    out_sharding,
-    chunk: int = 1 << 16,
-) -> jax.Array:
-    """Stacked analog of make_unified_table_chunked: per-shard dense 2D
-    unified node-block tables [S, n_pad*s_data, 128], built chunk-wise with
-    a donated accumulator so peak HBM per device stays ~table + one chunk."""
-    from hnsw_tpu.ops.pallas_gather import (
-        pack_unified_rows,
-        unified_row_sublanes,
-    )
-
-    s, n_pad, d = vecs_dev.shape
-    m0 = level0_dev.shape[2]
-    d_pad = round_up(d, 128)
-    _, s_data = unified_row_sublanes(m0, d_pad)
-    sent = n_pad - 1
-
-    @functools.partial(jax.jit, donate_argnums=(0,), out_shardings=out_sharding)
-    def upd(tab, xb, lvl, start):
-        rows = jax.vmap(
-            lambda x1, l1: pack_unified_rows(x1, l1, sent).reshape(-1, 128)
-        )(xb, lvl)  # [S, chunk*s_data, 128]
-        return jax.lax.dynamic_update_slice(tab, rows, (0, start * s_data, 0))
-
-    xb = jax.jit(lambda v: v.astype(jnp.bfloat16))(vecs_dev)
-    tab = jax.jit(
-        lambda: jnp.zeros((s, n_pad * s_data, 128), jnp.int32),
-        out_shardings=out_sharding,
-    )()
-    for st in range(0, n_pad, chunk):
-        e = min(st + chunk, n_pad)
-        tab = upd(tab, xb, level0_dev[:, st:e], jnp.int32(st))
-    return jax.block_until_ready(tab)
-
-
 def build_sharded_arrays(
     shards: list[tuple["HNSWGraph", np.ndarray]],
     space: Space,
     mesh: Mesh,
     shard_axis: str = "shard",
-    inline_neighbors: bool | None = None,
-    unified_max_bytes: int | None = None,
     growth_headroom: float = 1 / 16,
-    upper_inline: bool = True,
-    keep_delta_tables: bool = True,
 ) -> ShardedIndexArrays:
     """Stack per-shard (graph, vectors) into uniform [S, ...] arrays and
     place them sharded over `mesh[shard_axis]`. Pads every shard to common
     n_pad / max_level / upper width so shapes are static, with growth
     headroom so small inserts re-stack as row deltas (the single-chip
-    resizeIndex analog, hnswalg.h:633-683).
-
-    The serving tier per shard follows the single-chip ladder
-    (unified > unified8 > split > gather), budgeted PER DEVICE — each
-    device's HBM holds exactly one shard's tables."""
-    from hnsw_tpu.models.hnsw import SPLIT_MAX_BYTES, UNIFIED_MAX_BYTES
-    from hnsw_tpu.ops.pallas_gather import (
-        make_upper_tables,
-        quantize_int8,
-        unified8_row_sublanes,
-        unified_row_sublanes,
-    )
-
-    if unified_max_bytes is None:
-        unified_max_bytes = UNIFIED_MAX_BYTES
+    resizeIndex analog, hnswalg.h:633-683)."""
     s = len(shards)
     n_max = max(g.num_nodes for g, _ in shards)
     n_pad = round_up(n_max + 1 + int(n_max * growth_headroom), 128)
@@ -224,9 +110,8 @@ def build_sharded_arrays(
             m_i = dg.upper.shape[2]
             upper[i, :l_i, :u_i, :m_i] = np.asarray(dg.upper)
             # remap the shard's own dummy slot (u_i-1, from its per-shard
-            # padding) to the STACKED dummy u_pad-1: the unified inline
-            # descent detects "absent at this level" by slot == u_pad-1,
-            # and a shard-local dummy below that reads as a real slot
+            # padding) to the STACKED dummy u_pad-1, so every shard marks
+            # "absent at this level" with the same slot
             us = np.asarray(dg.upper_slot)
             upper_slot[i, :l_i] = np.where(us == u_i - 1, u_pad - 1, us)
         labels[i] = np.asarray(dg.labels)
@@ -236,46 +121,10 @@ def build_sharded_arrays(
 
     sq = (vecs.astype(np.float64) ** 2).sum(-1).astype(np.float32)
 
-    if inline_neighbors is None:
-        inline_neighbors = jax.default_backend() == "tpu"
-
-    # -- tier choice (per-device bytes; mirrors build_inline_tables) --------
-    d_pad = round_up(dim, 128)
-    kind = "off"
-    if inline_neighbors:
-        _, s_row = unified_row_sublanes(m0_pad, d_pad)
-        u8_ok = m0_pad * d_pad % 512 == 0 and 2 * m0_pad <= 128
-        u8_bytes = (
-            n_pad * (m0_pad * d_pad // 512 + 1) * 512
-            + n_pad * d_pad
-            + 4 * n_pad
-            if u8_ok
-            else 1 << 62
-        )
-        u4_ok = m0_pad * d_pad % 1024 == 0 and 2 * m0_pad <= 128
-        u4_bytes = (
-            n_pad * (m0_pad * d_pad // 1024 + 1) * 512
-            + n_pad * d_pad
-            + 4 * n_pad
-            if u4_ok
-            else 1 << 62
-        )
-        if m0_pad <= 128 and n_pad * s_row * 512 <= unified_max_bytes:
-            kind = "unified"
-        elif u8_bytes <= unified_max_bytes:
-            kind = "unified8"
-        elif u4_bytes <= unified_max_bytes:
-            kind = "unified4"
-        elif m0_pad <= 32 and n_pad * m0_pad * d_pad * 2 <= SPLIT_MAX_BYTES:
-            kind = "split"
-
     shard_spec = lambda *rest: NamedSharding(mesh, P(shard_axis, *rest))
     put = lambda a, spec: jax.device_put(jnp.asarray(a), spec)
     vecs_dev = put(vecs, shard_spec(None, None))
     if space.storage_dtype != jnp.float32:
-        # serve-trim vector table (the sharded mirror of the single-chip
-        # --hbm_trim config): rescore + seed matmul read these rows and the
-        # MXU computes in bf16 anyway — halves per-device vector bytes
         vecs_dev = jax.jit(
             lambda v: v.astype(space.storage_dtype),
             donate_argnums=0,
@@ -284,115 +133,6 @@ def build_sharded_arrays(
     level0_dev = put(level0, shard_spec(None, None))
     upper_dev = put(upper, shard_spec(None, None, None))
     upper_slot_dev = put(upper_slot, shard_spec(None, None))
-
-    dummy3 = put(np.zeros((s, 1, 1), np.int32), shard_spec(None, None))
-    dummy_codes = put(np.zeros((s, 1, 1), np.int8), shard_spec(None, None))
-    dummy_scales = put(np.zeros((s, 1), np.float32), shard_spec(None))
-    nbr_vec = put(np.zeros((s, 1, 1, 1), np.float16), shard_spec(None, None, None))
-    l0_tiles = put(np.zeros((s, 1, 1, 1), np.int32), shard_spec(None, None, None))
-    uni_tab, codes, scales = dummy3, dummy_codes, dummy_scales
-    upper_tabs = ()
-
-    if kind == "unified":
-        uni_tab = _make_sharded_unified_chunked(
-            vecs_dev, level0_dev, shard_spec(None, None)
-        )
-    elif kind in ("unified8", "unified4"):
-        from hnsw_tpu.ops.pallas_gather import (
-            pack_unified4_rows,
-            pack_unified8_rows,
-            quantize_exact_i8,
-            quantize_int4,
-            unified4_row_sublanes,
-        )
-
-        if kind == "unified4":
-            quant = quantize_int4
-        elif space.exact_i8:
-            # shifted-uint8 space: scale-1 lossless codes (L2SpaceI parity)
-            quant = quantize_exact_i8
-        else:
-            quant = quantize_int8
-        pack = pack_unified4_rows if kind == "unified4" else pack_unified8_rows
-        codes, scales = jax.jit(
-            jax.vmap(quant),
-            out_shardings=(shard_spec(None, None), shard_spec(None)),
-        )(vecs_dev)
-        if d_pad != dim:
-            codes = jax.jit(
-                lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, d_pad - dim))),
-                out_shardings=shard_spec(None, None),
-            )(codes)
-        _, s8 = (
-            unified4_row_sublanes(m0_pad, d_pad)
-            if kind == "unified4"
-            else unified8_row_sublanes(m0_pad, d_pad)
-        )
-        sent = n_pad - 1
-
-        @functools.partial(
-            jax.jit, donate_argnums=(0,), out_shardings=shard_spec(None, None)
-        )
-        def upd8(tab, cds, scl, lvl, start):
-            rows = jax.vmap(
-                lambda c1, s1, l1: pack(c1, s1, l1, sent).reshape(
-                    -1, 128
-                )
-            )(cds, scl, lvl)
-            return jax.lax.dynamic_update_slice(tab, rows, (0, start * s8, 0))
-
-        uni_tab = jax.jit(
-            lambda: jnp.zeros((s, n_pad * s8, 128), jnp.int32),
-            out_shardings=shard_spec(None, None),
-        )()
-        chunk = 1 << 16
-        for st in range(0, n_pad, chunk):
-            e = min(st + chunk, n_pad)
-            uni_tab = upd8(
-                uni_tab, codes, scales, level0_dev[:, st:e], jnp.int32(st)
-            )
-        uni_tab = jax.block_until_ready(uni_tab)
-        if not keep_delta_tables:
-            # serve-only stack: drop the quantized side tables used for
-            # row-delta refresh (mutations then force a full re-stack) —
-            # the per-device analog of build_inline_tables' trim
-            codes, scales = dummy_codes, dummy_scales
-    elif kind == "split":
-        from hnsw_tpu.ops.pallas_gather import (
-            make_inline_neighbors,
-            make_level0_tiles,
-        )
-
-        per_shard_bytes = n_pad * m0_pad * d_pad * 2
-        if per_shard_bytes > 2**31:
-            # single-shot gather transiently peaks ~2x per-shard table size
-            # (HBM-edge OOM at Deep10M-class shards) — chunk-wise donated
-            nbr_vec = _make_sharded_inline_chunked(
-                vecs_dev, level0_dev, shard_spec(None, None, None)
-            )
-        else:
-            nbr_vec = jax.jit(
-                jax.vmap(make_inline_neighbors),
-                out_shardings=shard_spec(None, None, None),
-            )(vecs_dev, level0_dev)
-        l0_tiles = jax.jit(
-            jax.vmap(make_level0_tiles),
-            out_shardings=shard_spec(None, None, None),
-        )(level0_dev)
-
-    if kind in ("unified", "unified8", "unified4") and max_l > 0 and upper_inline:
-        out_sh = tuple(
-            (shard_spec(None, None), shard_spec(None)) for _ in range(max_l)
-        )
-        from hnsw_tpu.ops.pallas_gather import upper_level_sizes_u
-
-        sizes = upper_level_sizes_u(upper_slot_dev, u_pad)
-        upper_tabs = jax.jit(
-            jax.vmap(
-                functools.partial(make_upper_tables, level_sizes=sizes)
-            ),
-            out_shardings=out_sh,
-        )(vecs_dev, upper_dev, upper_slot_dev)
 
     return ShardedIndexArrays(
         vectors=vecs_dev,
@@ -403,13 +143,6 @@ def build_sharded_arrays(
         labels=put(labels, shard_spec(None)),
         entry_point=put(entry, shard_spec()),
         num_nodes=put(nn, shard_spec()),
-        nbr_vectors=nbr_vec,
-        level0_tiles=l0_tiles,
-        unified_table=uni_tab,
-        codes=codes,
-        scales=scales,
-        upper_tabs=upper_tabs,
-        kind=kind,
     )
 
 
@@ -477,8 +210,7 @@ def sharded_landmark_arrays(
     static_argnames=(
         "k", "ef", "space", "expand", "max_iters", "mesh", "dp_axis",
         "shard_axis", "has_mask", "has_entry", "stop_patience",
-        "stop_frontier", "frontier_rank", "entry_seeds", "exact_i8",
-        "stop_fn",
+        "stop_frontier", "frontier_rank", "entry_seeds", "stop_fn",
     ),
 )
 def sharded_search(
@@ -504,14 +236,13 @@ def sharded_search(
     stop_frontier: float = 0.0,
     frontier_rank: int = 0,
     entry_seeds: int = 0,
-    exact_i8: bool = False,
     stop_fn: object = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Search all shards and merge → (dists [B, k], labels [B, k] int64).
 
     Inside shard_map each device searches its own sub-index with the full
-    single-chip kernel; the [S, B, k] partial results are all-gathered over
-    ICI and reduced by a length-S*k top-k merge, replicated back.
+    single-chip kernel; the [S, B, k] partial results are all-gathered and
+    reduced by a length-S*k top-k merge, replicated back.
 
     `eligible` carries deleted-mark + label-filter eligibility per shard
     (markDelete/BaseFilterFunctor parity with the single-chip index,
@@ -519,15 +250,14 @@ def sharded_search(
     local entry overrides (-1 = that shard's default entry point).
 
     `entry_seeds` > 0 enables the landmark-seeded entry mode per shard
-    (SearchParams.entry_seeds parity): each device runs one MXU matmul of
+    (SearchParams.entry_seeds parity): each device runs one matmul of
     its dp-local queries against its own upper-level nodes and starts the
     beam at the best S landmarks instead of the greedy descent. The seed
     matmul is shard-local, so the mode composes with the shard merge at no
     collective cost. Ignored when a per-query entry override is given.
     """
     q_spec = P(dp_axis, None) if dp_axis else P()
-    # every index leaf is sharded on its leading [S] axis; `kind` is static
-    # pytree metadata, so the spec instance must carry the same value
+    # every index leaf is sharded on its leading [S] axis
     arr_spec = ShardedIndexArrays(
         vectors=P(shard_axis, None, None),
         sq_norms=P(shard_axis, None),
@@ -537,16 +267,6 @@ def sharded_search(
         labels=P(shard_axis, None),
         entry_point=P(shard_axis),
         num_nodes=P(shard_axis),
-        nbr_vectors=P(shard_axis, None, None, None),
-        level0_tiles=P(shard_axis, None, None, None),
-        unified_table=P(shard_axis, None, None),
-        codes=P(shard_axis, None, None),
-        scales=P(shard_axis, None),
-        upper_tabs=tuple(
-            (P(shard_axis, None, None), P(shard_axis, None))
-            for _ in arrays.upper_tabs
-        ),
-        kind=arrays.kind,
     )
     out_spec = (q_spec, q_spec) if dp_axis else (P(), P())
     # per-query masks carry a batch axis that must follow the dp split
@@ -561,8 +281,6 @@ def sharded_search(
         P(shard_axis, dp_axis) if (dp_axis and has_entry) else P(shard_axis, None)
     )
 
-    kind = arrays.kind  # static: selects the per-shard serving tier
-    interpret = jax.default_backend() != "tpu"
     use_seeds = entry_seeds > 0 and landmarks is not None and not has_entry
     lm_spec = (
         (P(shard_axis, None, None), P(shard_axis, None), P(shard_axis, None))
@@ -577,7 +295,7 @@ def sharded_search(
         a1 = jax.tree_util.tree_map(lambda t: t[0], a)
         seed_kwargs = {}
         if use_seeds:
-            # landmark-seeded entry, shard-locally: one MXU matmul of the
+            # landmark-seeded entry, shard-locally: one matmul of the
             # dp-local queries against this shard's upper-level nodes;
             # padded landmark rows (id -1) are forced to inf so they never
             # displace the descent-quality entry (traversal.py seed init
@@ -595,61 +313,29 @@ def sharded_search(
                 "seed_ids": sid,
                 "seed_dists": jnp.where(sid >= 0, sd, jnp.inf),
             }
-        tier_kwargs = {}
-        if kind in ("unified", "unified8", "unified4"):
-            tier_kwargs = dict(
-                unified_table=a1.unified_table,
-                upper_tables=a1.upper_tabs if a1.upper_tabs else None,
-                unified_int8=kind == "unified8",
-                unified_int4=kind == "unified4",
-            )
-        elif kind == "split":
-            tier_kwargs = dict(
-                nbr_vectors=a1.nbr_vectors, level0_tiles=a1.level0_tiles
-            )
-        # quantized tiers rescore SHARD-LOCALLY: each shard re-ranks its m
-        # best candidates against its own f32 vectors before the merge, so
-        # the all-gathered distances are exact and globally comparable (the
-        # single-chip auto-rescore policy, models/hnsw.py)
-        # the exact-u8 space's unified8 codes are lossless — skip the rescore
-        lossy = kind == "unified4" or (kind == "unified8" and not exact_i8)
-        m_res = min(4 * k, max(ef, k)) if lossy else 0
-        k_loc = max(k, m_res)
         res = search_batch(
             a1.vectors,
             _local_graph(a1),
             q,
-            k=k_loc,
-            ef=max(ef, k_loc),
+            k=k,
+            ef=max(ef, k),
             space=space,
             sq_norms=a1.sq_norms if space == "l2" else None,
             eligible=el[0] if has_mask else None,
             has_mask=has_mask,
             entry_ids=en[0] if has_entry else None,
             **seed_kwargs,
-            **tier_kwargs,
             expand=expand,
             max_iters=max_iters,
-            interpret=interpret,
             stop_patience=stop_patience,
             stop_frontier=stop_frontier,
             frontier_rank=frontier_rank,
             stop_fn=stop_fn,
         )
-        if m_res:
-            from hnsw_tpu.models.hnsw import _rescore_topk
-
-            rd, ri = _rescore_topk(
-                q, a1.vectors, res.ids, res.dists,
-                k=k, m=m_res, space=space, interpret=interpret,
-            )
-        else:
-            rd, ri = res.dists, res.ids
-        res = type(res)(rd, ri, res.hops, res.dist_comps, res.last_improve)
         # local ids -> global labels before leaving the shard
         lab = jnp.take(a1.labels, jnp.clip(res.ids, 0, a1.labels.shape[0] - 1))
         lab = jnp.where(jnp.isfinite(res.dists), lab, -1)
-        # all-gather partials over ICI, merge top-k (replicated result)
+        # all-gather partials, merge top-k (replicated result)
         all_d = jax.lax.all_gather(res.dists, shard_axis)  # [S, B, k]
         all_l = jax.lax.all_gather(lab, shard_axis)  # [S, B, k]
         s = all_d.shape[0]
@@ -679,9 +365,7 @@ def _bucket(k: int) -> int:
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("kind", "has_sq", "exact_i8"),
-    donate_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 8),
+    jax.jit, static_argnames=("has_sq",), donate_argnums=(0, 1, 2, 3, 4)
 )
 def _apply_sharded_row_deltas(
     x,  # [S, n_pad, D] (donated)
@@ -689,10 +373,6 @@ def _apply_sharded_row_deltas(
     level0,  # [S, n_pad, m0_pad] (donated)
     labels,  # [S, n_pad] int64 (donated)
     num_nodes,  # [S] int32 (donated)
-    nbr_vec,  # split inline table or dummy (donated)
-    uni,  # [S, n_pad*s_row, 128] unified table or dummy (donated)
-    codes,  # [S, n_pad, d_pad] int8 or dummy (donated)
-    scales,  # [S, n_pad] f32 or dummy (donated)
     new_vecs,  # [S, Nb, D]
     new_ids,  # [S, Nb] int32 (sent-padded)
     new_labs,  # [S, Nb] int64
@@ -700,17 +380,14 @@ def _apply_sharded_row_deltas(
     dirty_rows,  # [S, Kb, m0_pad] int32
     new_nn,  # [S] int32
     *,
-    kind: str,
     has_sq: bool,
-    exact_i8: bool = False,  # unified8 codes are lossless scale-1 (L2SpaceU8)
 ):
     """Sharded mirror of models.hnsw._apply_row_deltas, vmapped over the
     shard axis: every device applies its own shard's insert/update delta in
-    place. Replaces the full re-stack (`self._arrays = None`) the round-2
-    sharded index did on any mutation."""
+    place instead of a full re-stack."""
     sent = level0.shape[1] - 1
 
-    def one(x1, sq1, l01, lab1, nv1, uni1, c1, s1, nvecs, nids, nlabs, dids, drows):
+    def one(x1, sq1, l01, lab1, nvecs, nids, nlabs, dids, drows):
         if nvecs.shape[0]:
             x1 = x1.at[nids].set(nvecs.astype(x1.dtype))
             lab1 = lab1.at[nids].set(nlabs)
@@ -719,83 +396,16 @@ def _apply_sharded_row_deltas(
             if has_sq:
                 nsq = jnp.sum(nvecs.astype(jnp.float32) ** 2, axis=-1)
                 sq1 = sq1.at[nids].set(nsq)
-            if kind in ("unified8", "unified4"):
-                from hnsw_tpu.ops.pallas_gather import (
-                    quantize_exact_i8,
-                    quantize_int4,
-                    quantize_int8,
-                )
-
-                if kind == "unified4":
-                    q8 = quantize_int4
-                elif exact_i8:
-                    q8 = quantize_exact_i8
-                else:
-                    q8 = quantize_int8
-                nc, ns = q8(nvecs)
-                if c1.shape[1] != nc.shape[1]:
-                    nc = jnp.pad(nc, ((0, 0), (0, c1.shape[1] - nc.shape[1])))
-                c1 = c1.at[nids].set(nc)
-                s1 = s1.at[nids].set(ns)
         if dids.shape[0]:
             l01 = l01.at[dids].set(drows)
-            if kind == "unified":
-                from hnsw_tpu.ops.pallas_gather import pack_unified_rows
-
-                rows_u = pack_unified_rows(x1, drows, sent)  # [K, s_row, 128]
-                s_row = rows_u.shape[1]
-                flat_idx = (dids[:, None] * s_row + jnp.arange(s_row)).reshape(-1)
-                uni1 = uni1.at[flat_idx].set(rows_u.reshape(-1, 128))
-            elif kind in ("unified8", "unified4"):
-                from hnsw_tpu.ops.pallas_gather import (
-                    pack_unified4_rows,
-                    pack_unified8_rows,
-                )
-
-                pk = (
-                    pack_unified4_rows
-                    if kind == "unified4"
-                    else pack_unified8_rows
-                )
-                rows8 = pk(c1, s1, drows, sent)
-                s8 = rows8.shape[1]
-                flat_idx = (dids[:, None] * s8 + jnp.arange(s8)).reshape(-1)
-                uni1 = uni1.at[flat_idx].set(rows8.reshape(-1, 128))
-            elif kind == "split":
-                d_pad = nv1.shape[-1]
-                rows_v = jnp.take(
-                    x1.astype(nv1.dtype), drows.reshape(-1), axis=0
-                )
-                if d_pad != rows_v.shape[-1]:
-                    rows_v = jnp.pad(
-                        rows_v, ((0, 0), (0, d_pad - rows_v.shape[-1]))
-                    )
-                nv1 = nv1.at[dids].set(rows_v.reshape(dids.shape[0], -1, d_pad))
-        return x1, sq1, l01, lab1, nv1, uni1, c1, s1
+        return x1, sq1, l01, lab1
 
     sq_in = sq if has_sq else jnp.zeros((x.shape[0], 1), jnp.float32)
-    x, sq_out, level0, labels, nbr_vec, uni, codes, scales = jax.vmap(one)(
-        x, sq_in, level0, labels, nbr_vec, uni, codes, scales,
-        new_vecs, new_ids, new_labs, dirty_ids, dirty_rows,
+    x, sq_out, level0, labels = jax.vmap(one)(
+        x, sq_in, level0, labels, new_vecs, new_ids, new_labs, dirty_ids,
+        dirty_rows,
     )
-    if kind == "split":
-        from hnsw_tpu.ops.pallas_gather import make_level0_tiles
-
-        l0_tiles = jax.vmap(make_level0_tiles)(level0)
-    else:
-        l0_tiles = jnp.zeros((x.shape[0], 1, 1, 1), jnp.int32)
-    return (
-        x,
-        sq_out if has_sq else sq,
-        level0,
-        labels,
-        new_nn,
-        nbr_vec,
-        l0_tiles,
-        uni,
-        codes,
-        scales,
-    )
+    return x, sq_out if has_sq else sq, level0, labels, new_nn
 
 
 class ShardedHNSWIndex:
@@ -837,11 +447,6 @@ class ShardedHNSWIndex:
         self._synced_n: list[int] | None = None  # per-shard device-synced size
         self._pending_delta = False
         self.last_sync_mode: str | None = None
-        # serve-trim knobs (per-shard mirror of the single-chip --hbm_trim
-        # config): set idx.space = L2Space(dim, storage_dtype=jnp.bfloat16)
-        # to halve the vector table too
-        self.upper_inline = True
-        self.keep_delta_tables = True
 
     def build(self, data: np.ndarray, labels: np.ndarray | None = None) -> None:
         from hnsw_tpu.native.hnsw_builder import NativeHNSWBuilder
@@ -888,8 +493,6 @@ class ShardedHNSWIndex:
         ]
         self._arrays = build_sharded_arrays(
             shards, self.space, self.mesh, self.shard_axis,
-            upper_inline=self.upper_inline,
-            keep_delta_tables=self.keep_delta_tables,
         )
         for b in self._builders:
             b.clear_dirty()
@@ -918,13 +521,6 @@ class ShardedHNSWIndex:
         import dataclasses as _dc
 
         a = self._arrays
-        kind = a.kind
-        if not self.keep_delta_tables or a.vectors.dtype != jnp.float32:
-            # serve-only stack (quantized side tables dropped) or trimmed
-            # bf16 vector table: the delta kernels assume f32 rows + live
-            # side tables — mutations re-stack in full (single-chip parity:
-            # _try_incremental_sync's nbr_vec[3] is None check)
-            return False
         s = self.num_shards
         n_pad = a.level0.shape[1]
         m0_pad = a.level0.shape[2]
@@ -1000,27 +596,19 @@ class ShardedHNSWIndex:
         new_nn = jnp.asarray([b.size for b in self._builders], jnp.int32)
 
         has_sq = self.space.name == "l2"
-        (
-            x, sq, level0, labels, nn, nbr_vec, l0_tiles, uni, codes, scales,
-        ) = _apply_sharded_row_deltas(
+        x, sq, level0, labels, nn = _apply_sharded_row_deltas(
             a.vectors,
             a.sq_norms if has_sq else jnp.zeros((1,), jnp.float32),
             a.level0,
             a.labels,
             a.num_nodes,
-            a.nbr_vectors,
-            a.unified_table,
-            a.codes,
-            a.scales,
             jnp.asarray(new_vecs),
             jnp.asarray(new_ids),
             jnp.asarray(new_labs),
             jnp.asarray(dirty_ids),
             jnp.asarray(dirty_rows),
             new_nn,
-            kind=kind,
             has_sq=has_sq,
-            exact_i8=self.space.exact_i8,
         )
         rep = dict(
             vectors=x,
@@ -1028,23 +616,14 @@ class ShardedHNSWIndex:
             level0=level0,
             labels=labels,
             num_nodes=nn,
-            unified_table=uni,
-            codes=codes,
-            scales=scales,
-            # nbr_vectors was donated even when it's a dummy — always take
-            # the pass-through output, or the stale reference is a deleted
-            # buffer
-            nbr_vectors=nbr_vec,
         )
-        if kind == "split":
-            rep.update(level0_tiles=l0_tiles)
 
         if any_upper:
             # upper arrays are small (~N/M rows): re-derive wholesale. When
             # inserts outgrow the stacked padding, GROW it (with headroom so
             # the next wave stays a delta) instead of re-stacking everything
-            # — growth only recompiles the search jit; vectors and the big
-            # serving tables are untouched (single-chip parity:
+            # — growth only recompiles the search jit; vectors and level-0
+            # links are untouched (single-chip parity:
             # HNSWIndex._try_incremental_sync re-derives upper shapes
             # freely, models/hnsw.py flags&1 branch).
             from hnsw_tpu.core.graph import upper_host_arrays
@@ -1088,29 +667,6 @@ class ShardedHNSWIndex:
                 ),
                 entry_point=jax.device_put(jnp.asarray(entry), spec()),
             )
-            if (
-                kind in ("unified", "unified8", "unified4")
-                and max_l > 0
-                and self.upper_inline
-            ):
-                from hnsw_tpu.ops.pallas_gather import (
-                    make_upper_tables,
-                    upper_level_sizes_u,
-                )
-
-                out_sh = tuple(
-                    (spec(None, None), spec(None)) for _ in range(max_l)
-                )
-                sizes = upper_level_sizes_u(
-                    rep["upper_slot"], rep["upper"].shape[2]
-                )
-                rep["upper_tabs"] = jax.jit(
-                    jax.vmap(
-                        functools.partial(make_upper_tables, level_sizes=sizes)
-                    ),
-                    out_shardings=out_sh,
-                )(x, rep["upper"], rep["upper_slot"])
-
         self._arrays = _dc.replace(a, **rep)
         self._synced_n = [b.size for b in self._builders]
         return True
@@ -1232,8 +788,6 @@ class ShardedHNSWIndex:
             shards.append((g, vectors))
         self._arrays = build_sharded_arrays(
             shards, self.space, self.mesh, self.shard_axis,
-            upper_inline=self.upper_inline,
-            keep_delta_tables=self.keep_delta_tables,
         )
         for b in self._builders:
             b.clear_dirty()
@@ -1272,7 +826,8 @@ class ShardedHNSWIndex:
         (SearchParams.seed_pool parity)."""
         q_np = self.space.preprocess(queries)
         b0 = q_np.shape[0]
-        # pad so each dp-local batch is a multiple of the hop-kernel tile
+        # pad each dp-local batch to a multiple of 16: nearby batch sizes
+        # share one compiled program
         unit = 16 * (self.mesh.shape[self.dp_axis] if self.dp_axis else 1)
         b_pad = ((b0 + unit - 1) // unit) * unit
         if b_pad != b0:
@@ -1352,7 +907,6 @@ class ShardedHNSWIndex:
             frontier_rank=frontier_rank,
             max_iters=max_iters,
             entry_seeds=entry_seeds,
-            exact_i8=self.space.exact_i8,
             stop_fn=stop_fn,
         )
         return np.asarray(d)[:b0], np.asarray(l)[:b0]

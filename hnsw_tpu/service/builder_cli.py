@@ -36,14 +36,8 @@ def main(argv=None):
 
     store = VectorStore(dbpath)
     t0 = time.time()
-    # inline_neighbors=False: the builder never searches, and the default
-    # (None) probes jax.default_backend() — initializing the TPU client in a
-    # process that only needs the host engine (and colliding with any TPU
-    # process already serving)
-    idx = HNSWIndex(
-        "l2", dim=dim, m=m, ef_construction=ef_construction,
-        inline_neighbors=False,
-    )
+    # the builder never searches, so it never touches the accelerator
+    idx = HNSWIndex("l2", dim=dim, m=m, ef_construction=ef_construction)
     for start in range(0, n, 10_000):
         chunk = data[start : start + 10_000]
         for i, v in enumerate(chunk):

@@ -45,7 +45,7 @@ def op_summary(log_dir: str, top: int = 20) -> list[tuple[str, float, int]]:
         for e in events
         if e.get("ph") == "M" and e.get("name") == "process_name"
     }
-    dev = {p for p, n in pids.items() if "TPU" in n or "GPU" in n}
+    dev = {p for p, n in pids.items() if "GPU" in n}
     agg: collections.Counter = collections.Counter()
     cnt: collections.Counter = collections.Counter()
     for e in events:

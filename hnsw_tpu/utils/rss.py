@@ -19,8 +19,8 @@ def apply_mem_cap(mem_cap_mb: int) -> bool:
     (the native frontends already do this, query_main.cpp:406-410): with a
     hard address-space ceiling, the service's memory claims are falsifiable —
     exceeding the cap kills the process instead of silently paging. Returns
-    True when the cap was applied; <= 0 disables (the default for the TPU
-    engine, whose runtime maps large device buffers into the address
+    True when the cap was applied; <= 0 disables (the default for the
+    device engine, whose runtime maps large device buffers into the address
     space)."""
     if mem_cap_mb <= 0:
         return False

@@ -109,12 +109,12 @@ def test_bulk_add_matches_sequential(rng):
 
 def test_oracle_exact_on_near_tie_clustered_data(rng):
     """The oracle must rank near-tie neighbors exactly (float64 ground
-    truth). On TPU the MXU rounds f32 matmul inputs to bf16 by default,
-    which misranked 1.25% of true 10-NN on 244-point clusters until the
-    oracle forced precision="highest" — the recall ceilings measured
-    against the scrambled GT (0.9875 at 100k/409c) were measurement error,
-    not search error. Guard the exactness contract (bruteforce.h:106-135
-    is exact by construction)."""
+    truth). An accelerator's default matmul precision may round f32 inputs
+    (TF32 on the GPU, bf16 on others), which misranks near-tie true
+    neighbors on clustered data unless the oracle forces
+    precision="highest" — recall measured against such ground truth is
+    measurement error, not search error. Guard the exactness contract
+    (bruteforce.h:106-135 is exact by construction)."""
     n, dim, nc, k = 20_000, 64, 80, 10
     centers = rng.normal(size=(nc, dim)).astype(np.float32)
     x = centers[rng.integers(0, nc, n)] + 0.5 * rng.normal(

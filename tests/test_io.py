@@ -114,7 +114,7 @@ def test_adj_import_searchable(tmp_path):
 
 def test_load_restores_every_init_attribute(tmp_path, rng):
     """HNSWIndex.load builds the object with __new__ and hand-sets state; a
-    missed attribute only explodes on whatever (possibly TPU-only) path reads
+    missed attribute only explodes on whatever (possibly device-only) path reads
     it, so pin the full attribute set structurally."""
     idx = HNSWIndex("l2", dim=16, m=8, ef_construction=50)
     idx.add_items(rng.normal(size=(64, 16)).astype(np.float32))

@@ -16,7 +16,7 @@ from hnsw_tpu.core.spaces import L2Space
 from hnsw_tpu.models.bruteforce import BruteforceIndex
 from hnsw_tpu.native.hnsw_builder import NativeHNSWBuilder
 
-N, DIM = 5000, 32
+N, DIM = 20000, 32  # past the builder's 4096-node serial prefix
 
 
 def _build(n_threads):
@@ -69,3 +69,26 @@ def test_batch_with_duplicate_labels_updates():
     d, l = b.search(y[0], k=1, ef=50)
     assert l[0] == 100 and d[0] < 1e-3
     check_integrity(b.export_graph(), require_inbound=False)
+
+
+def test_threaded_build_leaves_no_orphans():
+    """The threaded link phase can prune a node out of every list that held
+    it; the repair pass after it must re-attach each such node, so every
+    node keeps an inbound level-0 edge."""
+    b, _ = _build(n_threads=4)
+    check_integrity(b.export_graph(), require_inbound=True)
+
+
+def test_small_threaded_batches_leave_no_orphans():
+    """A batch that is small against the graph checks only its fresh nodes
+    and the nodes its overflow re-prunes dropped, not every link; that must
+    still re-attach every orphan."""
+    rng = np.random.default_rng(0)
+    base, dim = 30000, 16
+    x = rng.normal(size=(base + 64 * 40, dim)).astype(np.float32)
+    b = NativeHNSWBuilder(dim=dim, space="l2", m=8, ef_construction=60)
+    b.add_batch(x[:base], np.arange(base), n_threads=8)
+    for s in range(base, len(x), 64):
+        b.add_batch(x[s:s + 64], np.arange(s, s + 64), n_threads=8)
+    assert b.size == len(x)
+    check_integrity(b.export_graph(), require_inbound=True)

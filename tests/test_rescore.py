@@ -1,6 +1,6 @@
-"""Exact-rescore pass for int8-served queries (VERDICT r2 item 5): the top
-candidates of a unified8-tier search are re-ranked against the
-full-precision vectors, recovering the quantization recall loss."""
+"""Exact-rescore pass: the top candidates of a search are re-ranked against
+the vector table at full f32 precision ("highest"), so the returned
+distances are exact whatever precision the hop's products ran at."""
 
 import numpy as np
 import pytest
@@ -13,32 +13,22 @@ DIM = 32
 N = 2000
 
 
-def _force_unified8(idx):
-    idx.inline_neighbors = True
-    idx.unified_max_bytes = 7 * 10**6  # u8 fits (~6MB), bf16 unified (~10MB) not
-    idx._device = None
-    idx._dirty = True
-    idx._sync_device()
-    assert idx._device[5][0] == "unified8", idx._device[5][0]
-
-
 @pytest.mark.slow
 def test_rescore_recovers_exact_distances(rng):
     x = (rng.normal(size=(N, DIM)) * 3).astype(np.float32)
     idx = HNSWIndex("l2", dim=DIM, m=8, ef_construction=100)
     idx.add_items(x)
-    _force_unified8(idx)
     q = rng.normal(size=(16, DIM)).astype(np.float32) * 3
 
     bf = BruteforceIndex(L2Space(DIM))
     bf.add_items(x, np.arange(N))
     d_ref, l_ref = bf.search_knn(q, 10)
 
-    # int8 path without rescore: distances are dequantized approximations
     d_raw, l_raw = idx.search(q, k=10, ef=200, params=SearchParams(
         k=10, ef=200, rescore=0))
-    # with rescore (auto on for unified8): exact f32 distances
-    d_rs, l_rs = idx.search(q, k=10, ef=200)
+    # with rescore: exact f32 distances
+    d_rs, l_rs = idx.search(q, k=10, ef=200, params=SearchParams(
+        k=10, ef=200, rescore=40))
 
     def recall(l):
         return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(l, l_ref)])
@@ -57,38 +47,51 @@ def test_rescore_respects_filters(rng):
     x = rng.normal(size=(N, DIM)).astype(np.float32)
     idx = HNSWIndex("l2", dim=DIM, m=8, ef_construction=100)
     idx.add_items(x)
-    _force_unified8(idx)
     q = rng.normal(size=(16, DIM)).astype(np.float32)
     mask = rng.random(N) < 0.5
-    d, l = idx.search(q, k=10, ef=200, filter_labels=mask)
+    d, l = idx.search(q, k=10, ef=200, filter_labels=mask,
+                      params=SearchParams(k=10, ef=200, rescore=40))
     ok = l.reshape(-1) >= 0
     assert mask[l.reshape(-1)[ok]].all()
 
 
-def test_gather_dist_bf16_table_pair_path(rng):
-    """The bf16-table variant of gather_dist_pallas (used when the vector
-    table is stored bf16 at the HBM edge, e.g. the N=4M serve config) DMAs
-    aligned row PAIRS and selects by id parity — it must match the f32
-    path to bf16 precision for both metrics and for odd/even ids."""
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a jaxpr, sub-jaxprs
+    included."""
+    from jax.extend.core import ClosedJaxpr, Jaxpr
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            subs = v if isinstance(v, (tuple, list)) else (v,)
+            for sub in subs:
+                if isinstance(sub, ClosedJaxpr):
+                    out += _dot_precisions(sub.jaxpr)
+                elif isinstance(sub, Jaxpr):
+                    out += _dot_precisions(sub)
+    return out
+
+
+@pytest.mark.parametrize("space", ["l2", "ip"])
+def test_rescore_runs_at_highest_precision(space):
+    """The hop may run f32 products at reduced precision (TF32 on the GPU);
+    the rescore is what restores exact distances, so its gather-contraction
+    must ask for "highest" — pinned on the traced program."""
+    import jax
     import jax.numpy as jnp
 
-    from hnsw_tpu.ops.pallas_gather import gather_dist_pallas
+    from hnsw_tpu.models.hnsw import _rescore_topk
 
-    tab = rng.normal(size=(513, 128)).astype(np.float32)  # odd N: pad path
-    q = rng.normal(size=(16, 128)).astype(np.float32)
-    ids = rng.integers(0, 513, size=(16, 24)).astype(np.int32)
-    for space in ("l2", "ip"):
-        ref = np.asarray(
-            gather_dist_pallas(
-                jnp.asarray(q), jnp.asarray(tab), jnp.asarray(ids),
-                space=space, interpret=True,
-            )
-        )
-        out = np.asarray(
-            gather_dist_pallas(
-                jnp.asarray(q), jnp.asarray(tab).astype(jnp.bfloat16),
-                jnp.asarray(ids), space=space, interpret=True,
-            )
-        )
-        scale = max(1.0, float(np.abs(ref).max()))
-        assert np.max(np.abs(out - ref)) / scale < 0.02, space
+    q = jnp.zeros((4, 8), jnp.float32)
+    x = jnp.zeros((16, 8), jnp.float32)
+    ids = jnp.zeros((4, 6), jnp.int32)
+    d = jnp.zeros((4, 6), jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda *a: _rescore_topk(*a, k=2, m=4, space=space)
+    )(q, x, ids, d)
+    precs = _dot_precisions(jaxpr.jaxpr)
+    assert precs, "rescore traced no dot_general"
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in precs), precs

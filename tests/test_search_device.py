@@ -113,7 +113,7 @@ def test_ip_space_recall(rng):
 
 
 def test_entry_seeds_landmark_mode(built):
-    """Landmark-seeded entry (SearchParams.entry_seeds): one MXU matmul
+    """Landmark-seeded entry (SearchParams.entry_seeds): one matmul
     against all upper-level nodes replaces the greedy descent. The seed set
     contains an exact argmin over the landmarks, so recall must match the
     descent path; output stays sorted; filters still apply."""

@@ -1,22 +1,9 @@
-"""Serve-only HBM-edge configuration (the N=4M trim): bf16 vector table,
-no quantized delta side-tables, no per-level upper descent tables.
-
-At 4M nodes the full residency (unified4 table + f32 vectors + codes/
-scales + upper tables) measured ~14.4GB and deterministically exhausted
-the 16GB v5e chip right after sync; this config trims it to ~11.9GB. The
-tests pin the three trim levers at small N on the CPU mesh:
-
-- bf16 vectors route gather_dist_pallas through the aligned-row-PAIR DMA
-  kernel (Mosaic rejects single sublane-row DMAs from (16,128)-tiled bf16
-  tables) — search quality must match the f32 config;
-- keep_delta_tables=False drops the codes/scales after packing, and a
-  subsequent mutation falls back to a FULL resync (not a crash, not a
-  stale table);
-- upper_inline=False serves the descent through the gather path.
-"""
+"""A full re-sync after a mutation must not hold two copies of the device
+arrays at once: `_full_sync` drops the old arrays, and the identity-keyed
+landmark cache that still references them, before it allocates the new
+ones."""
 
 import numpy as np
-import pytest
 
 DIM = 128
 N = 2000
@@ -29,84 +16,17 @@ def _clustered(rng, n=N):
     ).astype(np.float32)
 
 
-def _serve_only_index(x):
-    import jax.numpy as jnp
-
-    from hnsw_tpu.core.spaces import L2Space
-    from hnsw_tpu.models.hnsw import HNSWIndex
-
-    idx = HNSWIndex("l2", dim=DIM, m=16, ef_construction=100,
-                    inline_neighbors=True)
-    idx.add_items(x)
-    # the 4M serve trim (bin/sweep2m.py): bf16 vectors, serve-only tables
-    idx.space = L2Space(DIM, storage_dtype=jnp.bfloat16)
-    idx.keep_delta_tables = False
-    idx.upper_inline = False
-    # int8 rows: 9 sublanes + side tables (~4740 B/node); int4: 5 sublanes
-    # + sides (~2692) — force the unified4 tier like the 4M table budget does
-    n_pad = ((N + 1 + 125) // 128 + 1) * 128
-    idx.unified_max_bytes = 3500 * n_pad
-    idx._device = None
-    idx._dirty = True
-    return idx
-
-
-@pytest.mark.slow
-def test_serve_only_bf16_unified4_search(rng):
-    from hnsw_tpu.models.hnsw import HNSWIndex
-
-    x = _clustered(rng)
-    idx = _serve_only_index(x)
-    q = x[:64] + 0.01 * rng.normal(size=(64, DIM)).astype(np.float32)
-    d4, l4 = idx.search(q, k=10, ef=100, entry_seeds=4)
-    nbr_vec = idx._device[5]
-    assert nbr_vec[0] == "unified4", nbr_vec[0]
-    assert nbr_vec[3] is None and nbr_vec[4] is None  # sides dropped
-    assert idx._device[1].dtype == np.dtype("bfloat16")
-
-    ref = HNSWIndex("l2", dim=DIM, m=16, ef_construction=100,
-                    inline_neighbors=True)
-    ref.add_items(x)
-    d16, l16 = ref.search(q, k=10, ef=100, entry_seeds=4)
-    overlap = np.mean([
-        len(set(l4[i]) & set(l16[i])) / 10 for i in range(64)
-    ])
-    assert overlap >= 0.9, overlap
-    assert np.mean(l4[:, 0] == np.arange(64)) >= 0.95
-    # the auto int4 rescore re-ranks against the bf16 vectors: top-1
-    # distances must match the true f32 distance to bf16 precision
-    true_d = ((q - x[:64]) ** 2).sum(-1)
-    hit = l4[:, 0] == np.arange(64)
-    np.testing.assert_allclose(d4[hit, 0], true_d[hit], rtol=2e-2, atol=0.5)
-
-
-@pytest.mark.slow
-def test_serve_only_mutation_falls_back_to_full_resync(rng):
-    x = _clustered(rng)
-    idx = _serve_only_index(x)
-    idx.search(x[:16], k=10, ef=50)
-    assert idx._device[5][3] is None
-
-    # mutate one point: without codes/scales the row delta cannot re-pack
-    # quantized rows — the sync must detect that and do a full resync
-    idx.add_items(x[7:8] + 1.0, labels=np.array([7]))
-    idx._sync_device()
-    assert idx._last_sync_mode == "full", idx._last_sync_mode
-    d, l = idx.search(x[7:8] + 1.0, k=1, ef=50)
-    assert l[0, 0] == 7
-
-
 def test_full_resync_releases_old_tables_first(rng, monkeypatch):
-    """The re-sync after a mutation must NOT hold old+new tables at once:
-    at the 4M serve-trim edge that 2x residency OOMs the chip (observed
-    live — bin/trim_mutation_cost.py). _full_sync drops self._device AND
-    the identity-keyed landmark cache (which holds the old tuple) before
-    allocating anything."""
+    """_full_sync drops self._device AND the identity-keyed landmark cache
+    (which holds the old tuple) before allocating anything, so peak device
+    memory during the re-sync is one index, not two."""
     import hnsw_tpu.models.hnsw as hnsw_mod
+    from hnsw_tpu.models.hnsw import HNSWIndex
 
     x = _clustered(rng)
-    idx = _serve_only_index(x)
-    # seeded search populates the landmark cache with the current tables
+    idx = HNSWIndex("l2", dim=DIM, m=16, ef_construction=100)
+    idx.add_items(x)
+    # seeded search populates the landmark cache with the current arrays
     idx.search(x[:8], k=10, ef=50, entry_seeds=4)
     assert getattr(idx, "_landmark_cache", None) is not None
 
@@ -119,8 +39,11 @@ def test_full_resync_releases_old_tables_first(rng, monkeypatch):
         return real(g, n_pad)
 
     monkeypatch.setattr(hnsw_mod, "graph_device_arrays", spy)
-    idx.add_items(x[7:8] + 1.0, labels=np.array([7]))  # forces full resync
+    # growth past the padded capacity forces a full re-sync
+    idx.add_items(_clustered(rng, n=N // 8), np.arange(N, N + N // 8))
     idx._sync_device()
     assert idx._last_sync_mode == "full"
     assert seen["device_at_alloc"] is None
     assert seen["lm_cache_at_alloc"] is None
+    d, l = idx.search(x[:8], k=1, ef=50)
+    assert (l[:, 0] == np.arange(8)).all()

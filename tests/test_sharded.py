@@ -169,31 +169,6 @@ def test_sharded_speed_mode(data):
     assert _recall(l_tiny, gt) < _recall(l_ex, gt)
 
 
-def test_sharded_inline_chunked_parity():
-    """Chunked sharded inline-table build equals the vmap single-shot one."""
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from hnsw_tpu.ops.pallas_gather import make_inline_neighbors
-    from hnsw_tpu.parallel.sharding import _make_sharded_inline_chunked
-
-    rng = np.random.default_rng(3)
-    mesh = Mesh(np.array(jax.devices()), ("shard",))
-    spec = NamedSharding(mesh, P("shard", None, None))
-    v = jax.device_put(
-        jnp.asarray(rng.normal(size=(8, 256, 96)).astype(np.float32)), spec
-    )
-    lvl = jax.device_put(
-        jnp.asarray(rng.integers(0, 255, size=(8, 256, 8)).astype(np.int32)),
-        spec,
-    )
-    ref = jax.vmap(make_inline_neighbors)(v, lvl)
-    got = _make_sharded_inline_chunked(
-        v, lvl, NamedSharding(mesh, P("shard", None, None, None)), chunk=100
-    )
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
-
-
 @pytest.mark.slow
 def test_sharded_entry_seeds(data):
     """Landmark-seeded entry (SearchParams.entry_seeds parity): per-shard

@@ -1,7 +1,6 @@
-"""Sharded serving-tier ladder + incremental re-stack (VERDICT r2 item 1):
-the sharded path must reach the same unified/unified8/split tiers as the
-single-chip index, and mutations must apply as per-shard row deltas instead
-of a full re-stack."""
+"""Sharded incremental re-stack: mutations must apply as per-shard row
+deltas instead of a full re-stack, and the delta state must equal a
+from-scratch rebuild."""
 
 import jax
 import numpy as np
@@ -12,7 +11,7 @@ from hnsw_tpu.core.spaces import L2Space
 from hnsw_tpu.models.bruteforce import BruteforceIndex
 from hnsw_tpu.parallel.sharding import ShardedHNSWIndex, build_sharded_arrays
 
-pytestmark = pytest.mark.slow  # multi-minute tier builds on the CPU mesh
+pytestmark = pytest.mark.slow  # multi-minute builds on the CPU mesh
 
 N, DIM = 3000, 32
 
@@ -35,59 +34,28 @@ def _recall(got, gt):
     return np.mean([len(set(got[i]) & set(gt[i])) / k for i in range(len(gt))])
 
 
-def _force_tier(idx, mesh, kind_budget, **kw):
-    """(Re)build the stacked arrays at the requested tier."""
+def _rebuild(idx, mesh):
+    """Re-stack the arrays from scratch (the full-sync reference state)."""
     shards = [
         (b.export_graph(), b.export_vectors()) for b in idx._builders
     ]
-    idx._arrays = build_sharded_arrays(
-        shards, idx.space, mesh, "shard",
-        inline_neighbors=kind_budget is not None,
-        unified_max_bytes=kind_budget, **kw,
-    )
+    idx._arrays = build_sharded_arrays(shards, idx.space, mesh, "shard")
     for b in idx._builders:
         b.clear_dirty()
     idx._synced_n = [b.size for b in idx._builders]
     idx._pending_delta = False
 
 
-def _build(x, kind_budget, mesh):
-    """Force a tier by steering the budget/inline flags."""
+def _build(x, mesh):
     idx = ShardedHNSWIndex("l2", DIM, mesh=mesh, m=8, ef_construction=100)
     idx.build(x)
-    _force_tier(idx, mesh, kind_budget)
     return idx
 
 
-@pytest.mark.parametrize(
-    "budget,expect",
-    [
-        (None, "off"),
-        (1 << 40, "unified"),
-        (2 * 10**6, "unified8"),  # too small for bf16 unified, fits int8
-        (1_200_000, "unified4"),  # too small for int8, fits int4
-        (0, "split"),
-    ],
-)
-def test_tier_ladder_recall(data, budget, expect):
+def test_incremental_delta(data):
     x, q, gt = data
     mesh = Mesh(np.array(jax.devices()), ("shard",))
-    idx = _build(x, budget, mesh)
-    assert idx._arrays.kind == expect, (idx._arrays.kind, expect)
-    d, labels = idx.search(q, k=10, ef=150)
-    r = _recall(labels, gt)
-    # quantized tiers rescore shard-locally against f32, so their floor is
-    # navigation-limited, not ranking-limited
-    floor = 0.93 if expect in ("unified8", "unified4") else 0.95
-    assert r >= floor, f"kind={expect} recall {r}"
-
-
-@pytest.mark.parametrize("budget,expect", [(1 << 40, "unified"), (0, "split")])
-def test_incremental_delta_per_tier(data, budget, expect):
-    x, q, gt = data
-    mesh = Mesh(np.array(jax.devices()), ("shard",))
-    idx = _build(x, budget, mesh)
-    assert idx._arrays.kind == expect
+    idx = _build(x, mesh)
     idx.search(q, k=10, ef=100)
 
     rng = np.random.default_rng(5)
@@ -106,55 +74,21 @@ def test_incremental_delta_per_tier(data, budget, expect):
     assert idx.last_sync_mode == "delta", idx.last_sync_mode
     assert (l2[:, 0] == upd_labels).mean() >= 0.9
 
-    # delta state must match a from-scratch rebuild AT THE SAME TIER
+    # delta state must match a from-scratch rebuild
     d_delta, l_delta = idx.search(q, k=10, ef=150)
-    _force_tier(idx, mesh, budget)
+    _rebuild(idx, mesh)
     d_full, l_full = idx.search(q, k=10, ef=150)
     np.testing.assert_allclose(d_delta, d_full, rtol=1e-5)
     np.testing.assert_array_equal(l_delta, l_full)
 
 
-def test_serve_trim_config(data):
-    """Sharded mirror of the single-chip --hbm_trim serve config (the N=4M
-    rung, res/sweep_4m.json): bf16 vector table, quantized side tables
-    dropped, no upper descent tables. Mutations must fall back to a full
-    re-stack (the delta kernels assume f32 rows + live side tables) and
-    still serve correctly."""
-    import jax.numpy as jnp
-
-    x, q, gt = data
-    mesh = Mesh(np.array(jax.devices()), ("shard",))
-    idx = ShardedHNSWIndex("l2", DIM, mesh=mesh, m=8, ef_construction=100)
-    idx.space = L2Space(DIM, storage_dtype=jnp.bfloat16)
-    idx.upper_inline = False
-    idx.keep_delta_tables = False
-    idx.build(x)
-    _force_tier(idx, mesh, 2 * 10**6,  # int8 rung
-                upper_inline=False, keep_delta_tables=False)
-    a = idx._arrays
-    assert a.kind == "unified8", a.kind
-    assert a.vectors.dtype == jnp.bfloat16
-    assert a.codes.shape == (mesh.size, 1, 1), "side tables not dropped"
-    assert a.upper_tabs == ()
-    d, labels = idx.search(q, k=10, ef=150)
-    assert _recall(labels, gt) >= 0.93
-
-    # mutations force a full re-stack and stay correct
-    rng = np.random.default_rng(9)
-    extra = rng.normal(size=(16, DIM)).astype(np.float32)
-    idx.add_items(extra, np.arange(N, N + 16))
-    d2, l2 = idx.search(extra, k=1, ef=150)
-    assert idx.last_sync_mode == "full", idx.last_sync_mode
-    assert (l2[:, 0] == np.arange(N, N + 16)).mean() >= 0.9
-
-
 def test_upper_growth_stays_delta(data):
     """Inserts that outgrow the stacked upper padding must still sync as a
     row delta: the small upper arrays grow (with headroom), the big vector /
-    serving tables are untouched. Round-2 behavior was a full re-stack."""
+    level-0 arrays are untouched."""
     x, q, gt = data
     mesh = Mesh(np.array(jax.devices()), ("shard",))
-    idx = _build(x, 1 << 40, mesh)
+    idx = _build(x, mesh)
     idx.search(q, k=10, ef=100)
     u_pad_before = idx._arrays.upper.shape[2]
 
@@ -175,9 +109,9 @@ def test_upper_growth_stays_delta(data):
         idx._arrays.upper.shape, u_pad_before,
     )
 
-    # delta state must match a from-scratch rebuild at the same tier
+    # delta state must match a from-scratch rebuild
     d_delta, l_delta = idx.search(q, k=10, ef=150)
-    _force_tier(idx, mesh, 1 << 40)
+    _rebuild(idx, mesh)
     d_full, l_full = idx.search(q, k=10, ef=150)
     np.testing.assert_allclose(d_delta, d_full, rtol=1e-5)
     np.testing.assert_array_equal(l_delta, l_full)
@@ -186,7 +120,7 @@ def test_upper_growth_stays_delta(data):
 def test_delete_after_delta(data):
     x, q, gt = data
     mesh = Mesh(np.array(jax.devices()), ("shard",))
-    idx = _build(x, 1 << 40, mesh)
+    idx = _build(x, mesh)
     idx.search(q, k=10, ef=100)
     victim = int(gt[0][0])
     idx.mark_deleted(victim)

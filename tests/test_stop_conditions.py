@@ -42,8 +42,8 @@ def test_adaptive_stop_cuts_hops_at_tiny_recall_cost(rng):
     r_fast = _recall(l1, gt)
 
     # mechanics on this deliberately hard (unclustered, tiny-N) set: far
-    # fewer expansions at a bounded recall cost. The production-quality
-    # operating point is swept at N=1M on TPU (res/sweep_stop_1m.json).
+    # fewer expansions at a bounded recall cost. The production operating
+    # point is calibrated at scale on the accelerator (chip_smoke.py).
     assert hops_fast < 0.6 * hops_full, (hops_fast, hops_full)
     assert r_fast >= r_full - 0.06, (r_fast, r_full)
 
@@ -107,8 +107,7 @@ def test_epsilon_style_stop_fn(rng):
 def test_hop_budget_caps_lockstep_iterations(rng):
     """max_iters is the lockstep hop budget: the batch runs at the slowest
     query's pace, so a hard cap near the hop-count p99 is the headline speed
-    mode (bench.py MAX_ITERS; measured on v5e at N=100k: frontier 1.15 alone
-    100.9k qps, + max_iters=24 163.3k qps at EQUAL 0.9889 recall)."""
+    mode (bench.py MAX_ITERS)."""
     idx, q, gt = _setup(rng)
     p_full = SearchParams(k=10, ef=200, collect_metrics=True)
     d0, l0 = idx.search(q, params=p_full)
@@ -176,9 +175,7 @@ def test_frontier_rank_ef_recovers_wide_beam_recall(rng):
     """The k-th-pinned frontier caps recall no matter how wide the beam is;
     frontier_rank=ef (hnswlib's own lower bound — the worst of the ef-sized
     result heap, hnswalg.h:342-436) must recover the exhaustive wide beam's
-    recall while still terminating adaptively (measured on TPU at 20k:
-    k-pinned ef512 saturates at 0.962 vs 0.983 exhaustive; res/highrecall_1m
-    is the at-scale artifact)."""
+    recall while still terminating adaptively."""
     idx, q, gt = _setup(rng)
     ef = 400
 

@@ -4,10 +4,9 @@ float bytes).
 
 The l2u8 space shifts values by -128 at insert/query time, so stored
 vectors are integers in [-128, 127]: squared-L2 distances are unchanged,
-every intermediate sum stays below 2^24 (exact in f32), and the int8
-unified tier's codes become scale-1 LOSSLESS — device-served distances
-must equal the integer distances bit-for-bit with the auto-rescore pass
-disabled.
+every intermediate sum stays below 2^24 (exact in f32, and each shifted
+value is exact in TF32 and bf16) — device-served distances must equal the
+integer distances bit-for-bit, with or without the rescore pass.
 """
 
 import numpy as np
@@ -32,43 +31,27 @@ def _exact_dists(q, x, labels):
     return out
 
 
-def _force_tier(idx, tier):
-    idx.inline_neighbors = True
-    if tier == "unified8":
-        # u8 fits (~6MB at this shape), bf16 unified (~10MB) does not
-        idx.unified_max_bytes = 7 * 10**6
-    else:
-        idx.unified_max_bytes = 10 * 2**30
-    idx._device = None
-    idx._dirty = True
-    idx._sync_device()
-    assert idx._device[5][0] == tier, idx._device[5][0]
-
-
 def _u8_data(rng):
     x = rng.integers(0, 256, size=(N, DIM)).astype(np.uint8)
     q = rng.integers(0, 256, size=(16, DIM)).astype(np.uint8)
     return x, q
 
 
-@pytest.mark.parametrize("tier", ["unified8", "unified"])
-def test_device_distances_bit_exact(rng, tier):
-    """Both the lossless int8 tier and the bf16 tier serve the exact
-    integer L2 distance for uint8 data (no rescore pass involved)."""
+@pytest.mark.parametrize("rescore", [0, 40])
+def test_device_distances_bit_exact(rng, rescore):
+    """The plain vector table serves the exact integer L2 distance for
+    uint8 data, from the hop alone and through the exact rescore."""
     x, q = _u8_data(rng)
     idx = HNSWIndex("l2u8", dim=DIM, m=8, ef_construction=100)
     idx.add_items(x)
-    _force_tier(idx, tier)
-    assert idx.space.exact_i8
-    if tier == "unified8":
-        # scale-1 codes: the side table must hold the shifted values exactly
-        codes = np.asarray(idx._device[5][3])[:N, :DIM]
-        np.testing.assert_array_equal(
-            codes, x.astype(np.int16).astype(np.int64) - 128
-        )
-        assert (np.asarray(idx._device[5][4])[:N] == 1.0).all()
+    # the stored table holds the shifted values exactly
+    np.testing.assert_array_equal(
+        np.asarray(idx.device_vectors)[:N],
+        x.astype(np.int64) - 128,
+    )
 
-    d, l = idx.search(q, k=10, ef=200)  # auto-rescore must be OFF (exact)
+    d, l = idx.search(q, k=10, ef=200,
+                      params=SearchParams(k=10, ef=200, rescore=rescore))
     ref = _exact_dists(q, x, l)
     valid = l >= 0
     assert valid.any()
@@ -80,7 +63,6 @@ def test_recall_matches_oracle(rng):
     x, q = _u8_data(rng)
     idx = HNSWIndex("l2u8", dim=DIM, m=8, ef_construction=100)
     idx.add_items(x)
-    _force_tier(idx, "unified8")
     bf = BruteforceIndex(L2SpaceU8(DIM))
     bf.add_items(x, np.arange(N))
     d_ref, l_ref = bf.search_knn(q, 10)
@@ -94,11 +76,11 @@ def test_recall_matches_oracle(rng):
 
 @pytest.mark.slow
 def test_incremental_insert_stays_exact(rng):
-    """Row-delta inserts quantize through the exact scale-1 path too."""
+    """Row-delta inserts keep the served distances exact too."""
     x, q = _u8_data(rng)
     idx = HNSWIndex("l2u8", dim=DIM, m=8, ef_construction=100)
     idx.add_items(x[: N - 100])
-    _force_tier(idx, "unified8")
+    idx.search(q, k=10, ef=200)
     idx.add_items(x[N - 100 :], np.arange(N - 100, N))
     d, l = idx.search(q, k=10, ef=200)
     assert idx._last_sync_mode == "delta"
@@ -124,7 +106,6 @@ def test_persist_roundtrip(rng, tmp_path):
     idx.save(p)
     idx2 = HNSWIndex.load(p)
     assert idx2.space.persist_name == "l2u8"
-    assert idx2.space.exact_i8
     d1, l1 = idx.search(q, k=10, ef=100)
     d2, l2 = idx2.search(q, k=10, ef=100)
     np.testing.assert_array_equal(l1, l2)
@@ -145,7 +126,7 @@ def test_bulk_build_recursive_upper_u8(rng):
         x, space="l2u8", m=8, ef_construction=100,
         first_wave=256, upper_recurse_min=50,
     )
-    assert idx.space.persist_name == "l2u8" and idx.space.exact_i8
+    assert idx.space.persist_name == "l2u8"
     assert idx.num_elements == N
     d, l = idx.search(q, k=10, ef=200)
     ref = _exact_dists(q, x, l)
